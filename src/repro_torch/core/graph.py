@@ -1,0 +1,238 @@
+"""CSR graph representation on a torch device.
+
+Counterpart of :mod:`repro.core.graph`.  The graph lives as flat int32
+tensors: the directed out-arc CSR (``out_ptr``/``out_idx``, used by
+``IsEdge(u, v)``) and the open undirected neighbourhoods
+(``nbr_ptr``/``nbr_idx``, used for the candidate set ``S`` and
+``IsNeighbour``), both with sorted columns.
+
+A :class:`CSRGraph` keeps the host numpy arrays it was built from
+(``host``) beside the device tensors (``arrays``): host-side scheduling
+(dyad enumeration for chunk bounds, bucket counts) reads the former and
+never copies from the card.
+
+Device rule: every constructor takes ``device``; ``None`` means
+``"cuda"``, and asking for CUDA on a machine without it raises instead of
+running on the CPU.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The port's device rule: ``None`` means ``"cuda"``; a CUDA device on
+    a machine without CUDA raises rather than falling back to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run on the CPU")
+    return dev
+
+
+def next_pow2(x: int) -> int:
+    """Smallest power of two >= x (minimum 1) — the metadata bucket
+    rounding rule of the plan keys."""
+    return 1 << max(0, int(x) - 1).bit_length() if x > 1 else 1
+
+
+class GraphArrays(NamedTuple):
+    """Graph arrays (all int32): torch tensors on a device, or numpy arrays
+    on the host.  ``in_ptr``/``in_idx`` hold the transpose (in-arc) CSR the
+    tile gather needs; only plans that use it build it
+    (:func:`repro_torch.kernels.ops.build_in_csr_device`)."""
+
+    out_ptr: "torch.Tensor | np.ndarray"  # (n+1,)
+    out_idx: "torch.Tensor | np.ndarray"  # (m,) sorted within each row
+    nbr_ptr: "torch.Tensor | np.ndarray"  # (n+1,)
+    nbr_idx: "torch.Tensor | np.ndarray"  # (m_nbr,) sorted within each row
+    nbr_deg: "torch.Tensor | np.ndarray"  # (n,) open-neighbourhood sizes
+    in_ptr: "Optional[torch.Tensor | np.ndarray]" = None
+    in_idx: "Optional[torch.Tensor | np.ndarray]" = None
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class CSRGraph:
+    """Static metadata + device tensors + the host arrays they came from."""
+
+    n: int
+    m: int  # number of directed arcs
+    m_nbr: int  # total undirected adjacency entries (2 * #undirected edges)
+    max_deg: int  # max undirected open-neighbourhood size
+    max_out_deg: int
+    arrays: GraphArrays  # torch tensors on ``device``
+    host: GraphArrays  # the same arrays as host numpy
+
+    @property
+    def n_dyads(self) -> int:
+        """Number of canonical connected dyads (undirected edges)."""
+        return self.m_nbr // 2
+
+    @property
+    def device(self) -> torch.device:
+        """The device the graph's tensors live on."""
+        return self.arrays.out_ptr.device
+
+
+def _build_csr(n: int, rows: np.ndarray, cols: np.ndarray):
+    """Sorted CSR from (row, col) pairs; rows/cols must be deduplicated."""
+    order = np.lexsort((cols, rows))
+    rows, cols = rows[order], cols[order]
+    ptr = np.zeros(n + 1, dtype=np.int64)
+    np.add.at(ptr, rows + 1, 1)
+    ptr = np.cumsum(ptr)
+    return ptr.astype(np.int32), cols.astype(np.int32)
+
+
+def _build_host_arrays(n: int, src, dst, *, directed: bool = True):
+    """Canonicalize the arc list and build both CSRs on the host.  Returns
+    ``(host GraphArrays, m, m_nbr, max_deg, max_out_deg)``."""
+    src = np.asarray(src, dtype=np.int64)
+    dst = np.asarray(dst, dtype=np.int64)
+    if src.size:
+        keep = src != dst
+        src, dst = src[keep], dst[keep]
+    if not directed and src.size:
+        src, dst = np.concatenate([src, dst]), np.concatenate([dst, src])
+    if src.size:  # dedup directed arcs
+        key = src * np.int64(n) + dst
+        _, uniq = np.unique(key, return_index=True)
+        src, dst = src[uniq], dst[uniq]
+    out_ptr, out_idx = _build_csr(n, src, dst)
+
+    # undirected open neighbourhoods: union of arcs in both directions
+    if src.size:
+        usrc = np.concatenate([src, dst])
+        udst = np.concatenate([dst, src])
+        ukey = usrc * np.int64(n) + udst
+        _, uniq = np.unique(ukey, return_index=True)
+        usrc, udst = usrc[uniq], udst[uniq]
+    else:
+        usrc, udst = src, dst
+    nbr_ptr, nbr_idx = _build_csr(n, usrc, udst)
+    deg = (nbr_ptr[1:] - nbr_ptr[:-1]).astype(np.int32)
+    out_deg = out_ptr[1:] - out_ptr[:-1]
+    arrays = GraphArrays(out_ptr=out_ptr, out_idx=out_idx, nbr_ptr=nbr_ptr,
+                         nbr_idx=nbr_idx, nbr_deg=deg)
+    return (arrays, int(src.size), int(usrc.size),
+            int(deg.max()) if n and deg.size else 0,
+            int(out_deg.max()) if n and out_deg.size else 0)
+
+
+def _graph_from_host(n: int, host: GraphArrays, m: int, m_nbr: int,
+                     max_deg: int, max_out_deg: int, device) -> CSRGraph:
+    dev = resolve_device(device)
+    arrays = GraphArrays(*(torch.as_tensor(a).to(dev) for a in host[:5]))
+    return CSRGraph(n=n, m=m, m_nbr=m_nbr, max_deg=max_deg,
+                    max_out_deg=max_out_deg, arrays=arrays, host=host)
+
+
+def from_edges(n: int, src, dst, *, directed: bool = True,
+               device=None) -> CSRGraph:
+    """Build a :class:`CSRGraph` from arc lists.
+
+    Self-loops are dropped (the algorithm targets strict digraphs) and
+    duplicate arcs are deduplicated, as in the paper's pre-processing
+    stage.  For ``directed=False`` every edge is materialized as a mutual
+    dyad.  The tensors land on ``device`` (``None`` = ``"cuda"``).
+    """
+    host, m, m_nbr, max_deg, max_out_deg = _build_host_arrays(
+        n, src, dst, directed=directed)
+    return _graph_from_host(n, host, m, m_nbr, max_deg, max_out_deg, device)
+
+
+def graph_from_reference_arrays(n: int, arrays, *, device=None) -> CSRGraph:
+    """Build the port's graph from another package's five CSR arrays.
+
+    ``arrays`` is any record with ``out_ptr``, ``out_idx``, ``nbr_ptr``,
+    ``nbr_idx`` and ``nbr_deg`` attributes convertible to numpy (the JAX
+    package's ``GraphArrays`` pulled to the host, or this package's own
+    ``CSRGraph.host``).  The arrays are copied as they are, so both
+    packages then run on identical CSRs; the counts and maxima are derived
+    from them.
+    """
+    host = GraphArrays(*(np.array(getattr(arrays, f), dtype=np.int32)
+                         for f in GraphArrays._fields[:5]))
+    out_deg = np.diff(host.out_ptr)
+    return _graph_from_host(
+        n, host, m=int(host.out_ptr[-1]), m_nbr=int(host.nbr_ptr[-1]),
+        max_deg=int(host.nbr_deg.max()) if host.nbr_deg.size else 0,
+        max_out_deg=int(out_deg.max()) if out_deg.size else 0,
+        device=device)
+
+
+def arcs_host(g: CSRGraph) -> "tuple[np.ndarray, np.ndarray]":
+    """The directed arc list ``(src, dst)`` as host int64 arrays — the
+    exact inverse of :func:`from_edges` for deduplicated strict digraphs."""
+    out_ptr = g.host.out_ptr[: g.n + 1]
+    dst = g.host.out_idx[: g.m].astype(np.int64)
+    src = np.repeat(np.arange(g.n, dtype=np.int64), np.diff(out_ptr))
+    return src, dst
+
+
+def dense_adjacency(g: CSRGraph) -> np.ndarray:
+    """(n, n) boolean adjacency — for small-graph oracles only."""
+    a = np.zeros((g.n, g.n), dtype=bool)
+    ptr, idx = g.host.out_ptr, g.host.out_idx
+    for u in range(g.n):
+        a[u, idx[ptr[u]: ptr[u + 1]]] = True
+    return a
+
+
+def load_pajek_or_edgelist(path: str, *, device=None) -> CSRGraph:
+    """Minimal loader for Pajek ``*Vertices/*Arcs/*Edges`` or ``u v`` lines.
+
+    Pajek files are 1-indexed, plain edge lists 0-indexed (paper §5.1.1);
+    vertex-label lines after ``*Vertices`` are skipped.
+    """
+    srcs: list[int] = []
+    dsts: list[int] = []
+    undirected_rows: list[int] = []
+    n = 0
+    mode = "edges"
+    pajek = False
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith(("#", "%")):
+                continue
+            low = line.lower()
+            if low.startswith("*vertices"):
+                n = int(line.split()[1])
+                pajek = True
+                mode = "vertices"
+                continue
+            if low.startswith("*arcs"):
+                mode = "arcs"
+                continue
+            if low.startswith("*edges"):
+                mode = "undirected"
+                continue
+            if line.startswith("*"):
+                mode = "skip"
+                continue
+            if mode in ("skip", "vertices"):
+                continue
+            parts = line.split()
+            if len(parts) < 2:
+                continue
+            u, v = int(parts[0]), int(parts[1])
+            if pajek:
+                u, v = u - 1, v - 1
+            srcs.append(u)
+            dsts.append(v)
+            if mode == "undirected":
+                undirected_rows.append(len(srcs) - 1)
+    src = np.array(srcs, dtype=np.int64)
+    dst = np.array(dsts, dtype=np.int64)
+    if undirected_rows:
+        extra = np.array(undirected_rows)
+        src = np.concatenate([src, dst[extra]])
+        dst = np.concatenate([dst, np.array(srcs, dtype=np.int64)[extra]])
+    if not n:
+        n = int(max(src.max(initial=-1), dst.max(initial=-1)) + 1)
+    return from_edges(n, src, dst, directed=True, device=device)

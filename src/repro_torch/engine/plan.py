@@ -1,0 +1,239 @@
+"""Compiled census plans and the plan cache.
+
+Counterpart of :mod:`repro.engine.plan` for the port's single-device
+slice.  ``compile(graph_meta, ops, config) -> Plan``: a :class:`Plan`
+owns what runs reuse — the padded-shape buckets, the chunk geometry, the
+chunk unit of its backend, and a per-graph memo of host-derived chunk
+schedules — and runs the census in one pass with one device→host copy
+(``stats["host_syncs"]``).  Plans are cached in a bounded LRU keyed on
+bucketized graph metadata, the ops and the config, so same-shape graphs
+share one plan.
+
+Unlike the JAX engine, a failing backend is not demoted to another one:
+there is no degradation ladder in the port, and an error surfaces.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from ..core.census import CensusResult
+from ..core.graph import CSRGraph, GraphArrays, next_pow2
+from ..kernels.ops import build_in_csr_device
+from . import backends
+from .config import EngineConfig
+from .executor import Executor
+from .ops import OpLayout, resolve_ops
+
+__all__ = ["CensusPlan", "GraphMeta", "Plan", "PlanShapeError", "compile",
+           "compile_census", "clear_plan_cache", "plan_cache_stats",
+           "set_plan_cache_capacity"]
+
+
+class PlanShapeError(ValueError):
+    """A graph exceeds the plan's metadata buckets — recompile at the
+    graph's own shape."""
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphMeta:
+    """Static, bucketized graph shape — the graph half of the plan-cache
+    key.  Fields are rounded up to powers of two so graphs of similar
+    shape share one plan."""
+
+    n_bucket: int       # vertices, rounded up
+    k: int              # candidate tile width (>= max undirected degree)
+    member_iters: int   # binary-search trips covering any CSR row
+    m_out_bucket: int   # directed-arc array length, rounded up
+    m_nbr_bucket: int   # undirected-adjacency array length, rounded up
+
+    @classmethod
+    def from_graph(cls, g: CSRGraph, k: Optional[int] = None) -> "GraphMeta":
+        k_bucket = next_pow2(max(g.max_deg, 1))
+        k_eff = int(k) if k else k_bucket
+        # membership searches run over real rows: cover the true max degree
+        depth = max(k_eff, k_bucket)
+        return cls(n_bucket=next_pow2(max(g.n, 1)), k=k_eff,
+                   member_iters=max(1, math.ceil(math.log2(depth + 1))) + 1,
+                   m_out_bucket=next_pow2(max(g.m, 1)),
+                   m_nbr_bucket=next_pow2(max(g.m_nbr, 1)))
+
+
+def _pad_to(t: torch.Tensor, size: int, fill: int) -> torch.Tensor:
+    out = torch.full((size,), fill, dtype=t.dtype, device=t.device)
+    out[: t.shape[0]] = t
+    return out
+
+
+class Plan:
+    """A compiled, reusable census plan for one shape bucket, op set,
+    config and device.  Create via :func:`compile`; run with :meth:`run`
+    (``{op_name: result}``) or :meth:`run_raw` (raw int64 bins)."""
+
+    def __init__(self, meta: GraphMeta, ops, config: EngineConfig,
+                 backend: str, device: torch.device):
+        self.meta = meta
+        self.ops = tuple(ops)
+        self.op_names = tuple(op.name for op in self.ops)
+        self.config = config
+        self.backend = backend
+        self.device = device
+        self.layout = OpLayout(self.ops, meta, config)
+        # streaming chunk, capped by the dyad-count bucket so small graphs
+        # do not pad up to a full default chunk
+        batch = config.batch
+        d_bucket = max(1, meta.m_nbr_bucket // 2)
+        self.chunk = min(config.resolve_chunk(), -(-d_bucket // batch) * batch)
+        # device dyad list length: whole chunks covering the dyad bucket
+        self.dyad_pad = max(self.chunk,
+                            -(-d_bucket // self.chunk) * self.chunk)
+        self.stats = {"runs": 0, "chunks": 0, "host_syncs": 0}
+        self.executor = Executor(config, self.stats, device)
+        self._task_memo: dict = {}
+        make = {"tiles": backends.make_tiles_chunk_fn,
+                "search": backends.make_search_chunk_fn}[backend]
+        self._fn = make(self.layout)
+
+    def _check(self, g: CSRGraph) -> None:
+        m = self.meta
+        if g.max_deg > m.k:
+            raise PlanShapeError(
+                f"graph max_deg={g.max_deg} exceeds plan tile width "
+                f"k={m.k}; recompile via repro_torch.engine.compile")
+        if (g.n > m.n_bucket or g.m > m.m_out_bucket
+                or g.m_nbr > m.m_nbr_bucket):
+            raise PlanShapeError(
+                f"graph (n={g.n}, m={g.m}, m_nbr={g.m_nbr}) exceeds plan "
+                f"buckets {m}; recompile via repro_torch.engine.compile")
+
+    def padded_arrays(self, g: CSRGraph, *,
+                      with_in_csr: bool = False) -> GraphArrays:
+        """The graph's tensors on the plan's device, padded to the metadata
+        buckets.  Padded ptr rows repeat the last offset (empty rows) and
+        padded idx/deg entries are inert.  ``with_in_csr`` also builds the
+        transpose CSR on the device (the tiles backend's in-arc rows)."""
+        m, a, dev = self.meta, g.arrays, self.device
+        arrays = GraphArrays(
+            out_ptr=_pad_to(a.out_ptr.to(dev), m.n_bucket + 1, g.m),
+            out_idx=_pad_to(a.out_idx.to(dev), m.m_out_bucket, 0),
+            nbr_ptr=_pad_to(a.nbr_ptr.to(dev), m.n_bucket + 1, g.m_nbr),
+            nbr_idx=_pad_to(a.nbr_idx.to(dev), m.m_nbr_bucket, 0),
+            nbr_deg=_pad_to(a.nbr_deg.to(dev), m.n_bucket, 0))
+        if with_in_csr:
+            in_ptr, in_idx = build_in_csr_device(arrays.out_ptr,
+                                                 arrays.out_idx)
+            arrays = arrays._replace(in_ptr=in_ptr, in_idx=in_idx)
+        return arrays
+
+    def run(self, g: CSRGraph) -> dict:
+        """Run every op in one pass; returns ``{op_name: result}``."""
+        return self.layout.finalize(self.run_raw(g), g)
+
+    def run_raw(self, g: CSRGraph):
+        """Run the pass and return the raw int64 accumulator bins (no
+        finalize); one device→host copy."""
+        self._check(g)
+        self.stats["runs"] += 1
+        return backends.RUNNERS[self.backend](self, g)
+
+    def census_view(self) -> "CensusPlan":
+        """The census-only view of this plan."""
+        if "triad_census" not in self.op_names:
+            raise ValueError(f"plan ops {self.op_names} do not include "
+                             "'triad_census'")
+        return CensusPlan(self)
+
+
+class CensusPlan:
+    """Triad-census view of a :class:`Plan`: every attribute delegates to
+    the plan, and :meth:`run` returns a bare
+    :class:`~repro_torch.core.census.CensusResult`."""
+
+    def __init__(self, plan: Plan):
+        self._plan = plan
+
+    def __getattr__(self, name):
+        return getattr(self._plan, name)
+
+    def run(self, g: CSRGraph) -> CensusResult:
+        """Run the census; int64 counts of all 16 triad types."""
+        return self._plan.run(g)["triad_census"]
+
+
+_PLAN_CACHE: collections.OrderedDict = collections.OrderedDict()
+_CACHE_STATS = {"hits": 0, "misses": 0, "evictions": 0}
+_CACHE_CAPACITY = 32
+
+
+def set_plan_cache_capacity(capacity: int) -> None:
+    """Bound the plan cache to ``capacity`` entries (LRU eviction)."""
+    global _CACHE_CAPACITY
+    if capacity < 1:
+        raise ValueError("plan cache capacity must be >= 1")
+    _CACHE_CAPACITY = capacity
+    _evict_to_capacity()
+
+
+def _evict_to_capacity() -> None:
+    while len(_PLAN_CACHE) > _CACHE_CAPACITY:
+        _PLAN_CACHE.popitem(last=False)
+        _CACHE_STATS["evictions"] += 1
+
+
+def compile(graph_meta, ops=("triad_census",),
+            config: Optional[EngineConfig] = None) -> Plan:
+    """Build (or fetch from cache) the plan for this graph shape + ops.
+
+    ``graph_meta`` is a :class:`CSRGraph` or a :class:`GraphMeta`.  The
+    config's backend and device are resolved first (``"auto"`` →
+    ``"tiles"``, ``None`` → ``"cuda"``, which raises without CUDA), so
+    equivalent configs share one cache entry.
+    """
+    config = config or EngineConfig()
+    op_objs = resolve_ops(ops)
+    meta = (graph_meta if isinstance(graph_meta, GraphMeta)
+            else GraphMeta.from_graph(graph_meta, k=config.k))
+    backend = config.resolve_backend()
+    device = config.resolve_device()
+    config = dataclasses.replace(config, backend=backend, device=str(device))
+    key = (meta, op_objs, config)
+    plan = _PLAN_CACHE.get(key)
+    if plan is not None:
+        _CACHE_STATS["hits"] += 1
+        _PLAN_CACHE.move_to_end(key)
+        return plan
+    _CACHE_STATS["misses"] += 1
+    plan = Plan(meta, op_objs, config, backend, device)
+    _PLAN_CACHE[key] = plan
+    _evict_to_capacity()
+    return plan
+
+
+def compile_census(graph_meta, config: Optional[EngineConfig] = None
+                   ) -> CensusPlan:
+    """Census-only front door: the census view of
+    ``compile(graph_meta, ("triad_census",), config)`` (same cache)."""
+    return compile(graph_meta, ("triad_census",), config).census_view()
+
+
+def clear_plan_cache() -> None:
+    """Drop every cached plan and reset the hit/miss/eviction counters."""
+    _PLAN_CACHE.clear()
+    _CACHE_STATS.update(hits=0, misses=0, evictions=0)
+
+
+def plan_cache_stats() -> dict:
+    """Cache counters plus one entry per cached plan (LRU order): its
+    bucketized ``meta``, ``backend``, ``device``, ``ops``, ``chunk``, live
+    ``task_memo`` entries and execution counters (``runs``, ``chunks``,
+    ``host_syncs``)."""
+    entries = [dict(meta=dataclasses.asdict(p.meta), backend=p.backend,
+                    device=str(p.device), ops=p.op_names, chunk=p.chunk,
+                    task_memo=len(p._task_memo), **p.stats)
+               for p in _PLAN_CACHE.values()]
+    return {**_CACHE_STATS, "size": len(_PLAN_CACHE),
+            "capacity": _CACHE_CAPACITY, "entries": entries}
