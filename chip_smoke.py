@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU and check them.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -7,8 +7,9 @@ It imports only the port (``src/repro_torch``), never ``jax`` or
 ``repro``.  Every phase prints one JSON line; any mismatch raises, so the
 script exits non-zero and prints no result.  Phases:
 
-1. build   — compile ``census_tiles.cu`` with nvcc (sm_90a) from the
-             checkout and load it; print the card and the ptxas report.
+1. build   — compile ``census_tiles.cu`` and ``flash_attention.cu`` with
+             nvcc (sm_90a) from the checkout, both at once, and load them;
+             print the card and each ptxas report.
 2. kernel  — on the Slashdot-sized R-MAT stand-in (the paper's Table 4.1
              network at its published size), replay every chunk the main
              path dispatches: the CUDA kernel against its plain torch
@@ -18,16 +19,36 @@ script exits non-zero and prints no result.  Phases:
 3. small   — ``compile(...).run(g)`` on R-MAT graphs of 64-256 vertices,
              both backends and several bucket sets, against the port's
              brute-force census.
-4. full    — the main path, ``compile(g, ("triad_census",),
+4. full    — the census main path, ``compile(g, ("triad_census",),
              EngineConfig(backend="tiles")).run_raw(g)``, cold then warm,
              bit-identical to ``backend="search"`` on the card, one
              device->host copy per run, one kernel launch per chunk;
              then one more warm run under torch.profiler: device time by
              kernel and the device's idle share.
-5. the kernels line, then the result line.
+5. flash_kernel — the flash-attention kernel against its plain version
+             (``flash_attention_ref``): bf16 at the qwen3-4b prefill shape
+             (B 4, T 2048, S 2080, H 32, Hkv 8, D 128) within 2e-2, f32
+             within 2e-5, a windowed case, ragged T/S with offset
+             positions at every supported head dim; CUDA-event times of
+             the kernel, the plain version and SDPA on the equal-work
+             causal slice (T = S = 2048), and the kernel's bound.
+6. serve   — the serving main path at qwen3-4b's full width and depth
+             (36 layers, d 2560, vocab 151936; bf16 weights from a seeded
+             generator): prefill of B 4 x 2048 prompt tokens into the KV
+             cache, then greedy decode to 32 new tokens.  A first prefill
+             with a forward hook on every layer's attention core holds
+             each of the 36 kernel launches against the plain version on
+             that layer's own inputs; the timed run then counts 36 flash
+             launches per prefill; one more prefill under torch.profiler.
+7. serve_f32 — the same width at 2 layers in f32: prefill logits of the
+             flash path against the dense path (<= 1e-3), and decode
+             logits against the full forward at every position (<= 1e-3).
+8. the kernels line, then the result line.
 
 Exits non-zero without a CUDA device.
 """
+import concurrent.futures
+import dataclasses
 import json
 import os
 import subprocess
@@ -36,7 +57,18 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak memory rate
+BF16_FLOP_PER_S = 989e12  # H100 SXM published dense bf16 tensor-core peak
 BIN012_LARGE_N = 134217760  # exact bin 012 of the large-n tile case
+KERNELS = ("census_tiles", "flash_attention")
+
+# the serving cell: qwen3-4b at full width, B prompts of PROMPT tokens,
+# NEW greedy tokens each (the KV cache holds PROMPT + NEW slots)
+ARCH = "qwen3-4b"
+SERVE = dict(batch=4, prompt=2048, new=32)
+# the f32 check: the same width at F32_LAYERS layers; decode is held
+# against the full forward over DECODE_T tokens
+F32_LAYERS = 2
+DECODE_T = 64
 
 
 def emit(phase, **fields):
@@ -90,6 +122,312 @@ def large_n_case(torch, device):
             torch.as_tensor(v, device=device), n, tiles)
 
 
+def flash_inputs(torch, dev, dtype, B, T, S, H, Hkv, D, *, q0=0,
+                 filled=None, seed=0):
+    """Random q, k, v and positions: queries at q0..q0+T-1, keys at
+    0..S-1 except that slots from ``filled`` on are empty (SENTINEL)."""
+    from repro_torch.models.attention import SENTINEL
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+
+    q_pos = (torch.arange(T, dtype=torch.int32, device=dev) + q0).repeat(B, 1)
+    kv_pos = torch.arange(S, dtype=torch.int32, device=dev)
+    if filled is not None:
+        kv_pos[filled:] = SENTINEL
+    return (normal(B, T, H, D), normal(B, S, Hkv, D), normal(B, S, Hkv, D),
+            q_pos, kv_pos.repeat(B, 1))
+
+
+def visible_pairs(torch, q_pos, kv_pos, window):
+    """(query, key) pairs this run's positions make visible, per head."""
+    mask = kv_pos[:, None, :] <= q_pos[:, :, None]
+    if window is not None:
+        mask &= kv_pos[:, None, :] > q_pos[:, :, None] - window
+    return int(mask.sum())
+
+
+def plain_f32(torch, ref, q, k, v, q_pos, kv_pos, window):
+    """The plain version on the same input values, its output left in f32.
+
+    A bf16 kernel output is held against this rather than against the
+    plain version's own bf16 output: the latter rounds once more, so two
+    results a hair apart can land one bf16 step apart (0.03125 for
+    outputs in [4, 8)) without either being wrong."""
+    return ref(q.float(), k.float(), v.float(), q_pos, kv_pos, window=window)
+
+
+def kernel_err(got, want):
+    """(max abs error, max error scaled by max(1, |want|)).
+
+    The checks hold the scaled error to the tolerance: for outputs of
+    magnitude up to 1 that is the absolute error; above, it grows with
+    the output as a bf16 step does (outputs of 4-8, which the serving
+    path produces, are stored in steps of 0.03125)."""
+    diff = (got.float() - want.float()).abs()
+    scaled = diff / want.float().abs().clamp(min=1.0)
+    return float(diff.max()), float(scaled.max())
+
+
+def flash_kernel_phase(torch, dev):
+    """The flash kernel against its plain version, its times and bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    B, P, N = SERVE["batch"], SERVE["prompt"], SERVE["new"]
+    cases = [  # name, dtype, (B, T, S, H, Hkv, D), options, tolerance
+        ("prefill_bf16", bf16, (B, P, P + N, 32, 8, 128), dict(filled=P),
+         None, 2e-2),
+        ("square_f32", f32, (2, 512, 512, 8, 2, 128), {}, None, 2e-5),
+        ("window_f32_d120", f32, (2, 300, 300, 8, 2, 120), {}, 100, 2e-5),
+    ]
+    for D in (16, 32, 64, 120, 128):  # ragged T and S, offset queries
+        for dtype, tol in ((f32, 2e-5), (bf16, 2e-2)):
+            cases.append((f"ragged_offset_d{D}_{str(dtype)[6:]}", dtype,
+                          (2, 100, 173, 4, 2, D), dict(q0=73), None, tol))
+    max_err = 0.0
+    for name, dtype, shape, opts, window, tol in cases:
+        args = flash_inputs(torch, dev, dtype, *shape, **opts)
+        got = flash_attention(*args, window=window)
+        want = plain_f32(torch, flash_attention_ref, *args, window)
+        torch.cuda.synchronize()
+        err, scaled = kernel_err(got, want)
+        check(scaled < tol, f"flash kernel {name}: scaled error {scaled} "
+                            f">= {tol} (max abs {err})")
+        if dtype == bf16:
+            max_err = max(max_err, err)
+        emit("flash_case", case=name, shape=list(shape), window=window,
+             max_abs_err=err, max_scaled_err=scaled, tolerance=tol)
+        del got, want
+
+    # times and bound at the prefill shape
+    q, k, v, q_pos, kv_pos = args = flash_inputs(
+        torch, dev, bf16, B, P, P + N, 32, 8, 128, filled=P)
+    ms = event_ms(torch, lambda: flash_attention(*args), reps=20)
+    plain_ms = event_ms(torch, lambda: flash_attention_ref(*args), reps=3)
+    # SDPA on the equal-work causal slice (the filled P x P part)
+    qs = q.transpose(1, 2).contiguous()
+    ks = k[:, :P].transpose(1, 2).contiguous()
+    vs = v[:, :P].transpose(1, 2).contiguous()
+    library_ms = event_ms(torch, lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True, enable_gqa=True), reps=20)
+    H, D = q.shape[2], q.shape[3]
+    pairs = visible_pairs(torch, q_pos, kv_pos, None)
+    flops = 4 * D * H * pairs  # QK^T and PV, 2 D each per visible pair
+    nbytes = sum(t.numel() * t.element_size() for t in args) + \
+        q.numel() * q.element_size()  # inputs read once, o written once
+    flop_ms = flops / BF16_FLOP_PER_S * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(flop_ms, byte_ms)
+    out = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=bound_ms,
+               bound_by="operations" if flop_ms >= byte_ms else "bytes",
+               max_abs_err=max_err)
+    emit("flash_kernel", shape=dict(B=B, T=P, S=k.shape[1], H=H,
+                                    Hkv=k.shape[2], D=D),
+         visible_pairs=pairs, flops=flops, bytes=nbytes, flop_ms=flop_ms,
+         byte_ms=byte_ms, tflop_per_s=flops / ms / 1e9,
+         kernel_over_bound=ms / bound_ms, **out)
+    return out
+
+
+def device_split(torch, fn):
+    """Run ``fn`` once under torch.profiler: wall time, device busy time,
+    the device's idle share and the kernels that take the most time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    on_card = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                      for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     reverse=True)
+    busy_ms = sum(ms for ms, _, _ in on_card)
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                device_idle_share=1 - busy_ms / wall_ms,
+                kernel_launches=sum(c for _, c, _ in on_card),
+                top=[dict(ms=ms, count=c, kernel=k[:100])
+                     for ms, c, k in on_card[:15]])
+
+
+def serve_phase(torch, dev):
+    """The serving main path at full width: checked, timed, profiled."""
+    from repro_torch.config import RunConfig, get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.models.attention import SENTINEL
+    from repro_torch.models.convert import from_jax_params
+    from repro_torch.models.transformer import init_cache, init_model
+    from repro_torch.serve import make_prefill_cache_step, make_serve_step
+
+    cfg = get_config(ARCH)
+    run = RunConfig(attention_impl="flash", param_dtype="bfloat16",
+                    compute_dtype="bfloat16")
+    B, P, N = SERVE["batch"], SERVE["prompt"], SERVE["new"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = from_jax_params(cfg, init_model(cfg, gen, torch.bfloat16),
+                            run=run, device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                            device=dev, dtype=torch.int32)
+    cache = init_cache(cfg, B, P + N, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    emit("serve_setup", arch=ARCH, layers=cfg.n_layers, d_model=cfg.d_model,
+         vocab=cfg.vocab_size, params=n_params, batch=B, prompt=P, new=N,
+         seconds=time.perf_counter() - t0,
+         weight_bytes=sum(p.numel() * p.element_size()
+                          for p in model.parameters()))
+    prefill = make_prefill_cache_step(cfg, run)
+    serve = make_serve_step(cfg, run)
+
+    # a checked prefill: every layer's kernel output against the plain
+    # version on that layer's own q, k, v and positions
+    errs = []
+
+    def hold_to_plain(core, args, out):
+        if args[0].shape[1] > 1:
+            want = plain_f32(torch, flash_attention_ref, *args, core.window)
+            errs.append(kernel_err(out, want))
+
+    hooks = [blk.attn.core.register_forward_hook(hold_to_plain)
+             for blk in model.layers]
+    flash_attention.launches = 0
+    logits, cache = prefill(model, prompts, cache)
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    check(flash_attention.launches == cfg.n_layers == len(errs),
+          f"checked prefill: {flash_attention.launches} launches, "
+          f"{len(errs)} checked, {cfg.n_layers} layers")
+    abs_errs, scaled_errs = zip(*errs)
+    check(max(scaled_errs) < 2e-2,
+          f"checked prefill: scaled error {max(scaled_errs)} (max abs "
+          f"{max(abs_errs)})")
+    check(logits.shape == (B, P, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "prefill logits")
+    emit("serve_checked", launches=len(errs), max_abs_err=max(abs_errs),
+         max_scaled_err=max(scaled_errs), per_layer_abs_err=abs_errs)
+    del logits
+
+    # the timed main path: prefill, then greedy decode to N new tokens
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    logits, cache = prefill(model, prompts, cache)
+    tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = flash_attention.launches
+    check(bool(torch.isfinite(logits[:, -1]).all()), "prefill logits")
+    del logits
+    out = [tok]
+    t0 = time.perf_counter()
+    for i in range(N - 1):
+        tok, cache, step_logits = serve(model, cache, tok, P + i)
+        out.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = flash_attention.launches
+    peak = torch.cuda.max_memory_allocated()
+    tokens = torch.cat(out, 1)
+    check(prefill_launches == launches == cfg.n_layers,
+          f"timed run: {prefill_launches} flash launches in prefill, "
+          f"{launches} in all; want {cfg.n_layers} (decode runs none)")
+    check(tokens.shape == (B, N) and bool(((tokens >= 0)
+                                           & (tokens < cfg.vocab_size)).all())
+          and bool(torch.isfinite(step_logits).all()), "decoded tokens")
+    check(int(cache.pos[0, 0, P + N - 2]) == P + N - 2
+          and int(cache.pos[0, 0, P + N - 1]) == SENTINEL,
+          "cache slots after decode")
+    emit("serve", prefill_ms=prefill_s * 1e3,
+         prefill_tokens_per_s=B * P / prefill_s,
+         decode_ms_per_token=decode_s * 1e3 / (N - 1),
+         decode_tokens_per_s=B * (N - 1) / decode_s,
+         flash_launches_per_prefill=prefill_launches,
+         max_memory_allocated=peak, first_tokens=tokens[:, :8].tolist())
+
+    # where one prefill's and one decode step's device time goes
+    emit("serve_profile", step="prefill", **device_split(
+        torch, lambda: prefill(model, prompts, cache)))
+    emit("serve_profile", step="decode", **device_split(
+        torch, lambda: serve(model, cache, tok, P)))
+    del model, cache
+    torch.cuda.empty_cache()
+    return dict(launches=launches, max_abs_err=max(abs_errs))
+
+
+def serve_f32_phase(torch, dev):
+    """Full width at F32_LAYERS layers in f32: the flash path against the
+    dense path, and decode against the full forward."""
+    from repro_torch.config import RunConfig, get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.convert import from_jax_params
+    from repro_torch.models.transformer import init_cache, init_model
+    from repro_torch.serve import (make_prefill_cache_step, make_prefill_step,
+                                   make_serve_step)
+
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=F32_LAYERS)
+    B, P, N = SERVE["batch"], SERVE["prompt"], SERVE["new"]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    params = init_model(cfg, gen, torch.float32)
+    runs = {impl: RunConfig(attention_impl=impl, param_dtype="float32",
+                            compute_dtype="float32")
+            for impl in ("flash", "dense")}
+    # both modules hold views of the same f32 weights
+    models = {impl: from_jax_params(cfg, params, run=run, device=dev)
+              for impl, run in runs.items()}
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                            device=dev, dtype=torch.int32)
+    logits, caches = {}, {}
+    for impl, run in runs.items():
+        flash_attention.launches = 0
+        cache = init_cache(cfg, B, P + N, dtype=torch.float32, device=dev)
+        logits[impl], caches[impl] = make_prefill_cache_step(cfg, run)(
+            models[impl], prompts, cache)
+        torch.cuda.synchronize()
+        want = cfg.n_layers if impl == "flash" else 0
+        check(flash_attention.launches == want,
+              f"f32 {impl} prefill: {flash_attention.launches} flash "
+              f"launches, want {want}")
+    prefill_err = float((logits["flash"] - logits["dense"]).abs().max())
+    check(prefill_err <= 1e-3, f"f32 prefill flash vs dense: {prefill_err}")
+    cache_err = max(float((a.float() - b.float()).abs().max())
+                    for a, b in zip(caches["flash"], caches["dense"]))
+    del logits, caches
+
+    run = runs["flash"]
+    toks = prompts[:2, :DECODE_T].contiguous()
+    full = make_prefill_step(cfg, run)(models["flash"], toks)
+    cache = init_cache(cfg, 2, DECODE_T, dtype=torch.float32, device=dev)
+    serve = make_serve_step(cfg, run)
+    steps = []
+    for t in range(DECODE_T):
+        _, cache, step_logits = serve(models["flash"], cache,
+                                      toks[:, t:t + 1], t)
+        steps.append(step_logits)
+    decode_err = float((full - torch.stack(steps, 1)).abs().max())
+    check(decode_err <= 1e-3, f"f32 decode vs full forward: {decode_err}")
+    emit("serve_f32", layers=cfg.n_layers, d_model=cfg.d_model,
+         vocab=cfg.vocab_size, batch=B, prompt=P,
+         prefill_flash_vs_dense_max_abs=prefill_err,
+         cache_flash_vs_dense_max_abs=cache_err, decode_tokens=DECODE_T,
+         decode_vs_full_forward_max_abs=decode_err)
+    del models, params, full, cache
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -118,15 +456,23 @@ def run(dev) -> int:
     print(smi, flush=True)
     kind = torch.cuda.get_device_name(0)
 
-    # 1. build ---------------------------------------------------------------
-    t0 = time.perf_counter()
-    lib_path, log = _build.build("census_tiles")
-    build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln or "smem" in ln]
-    emit("build", seconds=build_s, library=os.path.relpath(lib_path, ROOT),
-         ptxas=ptxas, card=smi, torch=torch.__version__,
-         cuda=torch.version.cuda)
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 references stay f32
+    torch.backends.cudnn.allow_tf32 = False
+
+    # 1. build: one nvcc per kernel source, all started together ------------
+    def timed_build(name):
+        t0 = time.perf_counter()
+        lib_path, log = _build.build(name)
+        return lib_path, log, time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        builds = dict(zip(KERNELS, pool.map(timed_build, KERNELS)))
+    for name, (lib_path, log, build_s) in builds.items():
+        ptxas = [ln.strip() for ln in log.splitlines()
+                 if "registers" in ln or "spill" in ln or "smem" in ln]
+        emit("build", kernel=name, seconds=build_s,
+             library=os.path.relpath(lib_path, ROOT), ptxas=ptxas, card=smi,
+             torch=torch.__version__, cuda=torch.version.cuda)
 
     # 2. kernel against its plain version, every chunk of the main path ------
     t0 = time.perf_counter()
@@ -261,8 +607,7 @@ def run(dev) -> int:
          top=[dict(ms=ms, count=c, kernel=k[:100])
               for ms, c, k in on_card[:12]])
 
-    # 5. kernels line, result line --------------------------------------------
-    print(json.dumps({"kernels": [dict(
+    census_row = dict(
         name="census_tiles", route="cuda",
         source="src/repro_torch/kernels/csrc/census_tiles.cu",
         replaces="src/repro/kernels/triad_census.py:36",
@@ -270,7 +615,26 @@ def run(dev) -> int:
         ms=sum(b["kernel_ms"] for b in per_bucket.values()),
         plain_ms=sum(b["plain_ms"] for b in per_bucket.values()),
         bound_ms=sum(b["bound_ms"] for b in per_bucket.values()),
-        bound_by="bytes", library_ms=None)]}), flush=True)
+        bound_by="bytes", library_ms=None)
+    del g, st, plan, splan
+    torch.cuda.empty_cache()
+
+    # 5.-7. the flash kernel and the serving path -----------------------------
+    flash = flash_kernel_phase(torch, dev)
+    served = serve_phase(torch, dev)
+    serve_f32_phase(torch, dev)
+
+    # 8. kernels line, result line --------------------------------------------
+    flash_row = dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:23",
+        launches=served["launches"],
+        max_abs_err=max(flash["max_abs_err"], served["max_abs_err"]),
+        ms=flash["ms"], plain_ms=flash["plain_ms"],
+        bound_ms=flash["bound_ms"], bound_by=flash["bound_by"],
+        library_ms=flash["library_ms"])
+    print(json.dumps({"kernels": [census_row, flash_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

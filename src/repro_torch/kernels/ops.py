@@ -1,11 +1,15 @@
-"""Tile construction for the census tile kernel: the transpose CSR and the
-six SENTINEL-padded neighbourhood tiles of a dyad chunk.
+"""Front doors of the port's kernels, counterpart of :mod:`repro.kernels.ops`.
 
-Counterpart of the triad-census half of :mod:`repro.kernels.ops`, as
-torch ops (device) and numpy (host).  Every tile row comes out sorted
-ascending with a SENTINEL tail and no duplicates: CSR columns are sorted
-and the transpose is built by a stable sort.  The CUDA kernel relies on
-that to find a row's length and probe it by binary search.
+* ``flash_attention(q, k, v, q_pos, kv_pos, *, window=None)`` — the flash
+  kernel (:mod:`repro_torch.kernels.flash_attention`; ``repro``'s
+  ``ops.flash_attention`` without its ``chunk`` and ``interpret``: the
+  CUDA kernel has its own tile, and a CPU tensor runs the plain version).
+* Tile construction for the census tile kernel: the transpose CSR and the
+  six SENTINEL-padded neighbourhood tiles of a dyad chunk, as torch ops
+  (device) and numpy (host).  Every tile row comes out sorted ascending
+  with a SENTINEL tail and no duplicates: CSR columns are sorted and the
+  transpose is built by a stable sort.  The CUDA kernel relies on that to
+  find a row's length and probe it by binary search.
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ import numpy as np
 import torch
 
 from ..core.graph import CSRGraph, GraphArrays
+from .flash_attention import flash_attention  # noqa: F401
 from .triad_census import SENTINEL
 
 TILE_NAMES = ("out_u", "in_u", "out_v", "in_v", "nbr_u", "nbr_v")

@@ -1,6 +1,8 @@
-"""Plain torch version of the census tile kernel (its CPU path and the
-reference the CUDA kernel is held against on the card)."""
+"""Plain torch versions of the port's kernels: their CPU path and the
+references the CUDA kernels are held against on the card."""
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -65,3 +67,26 @@ def census_tiles_ref(out_u, in_u, out_v, in_v, nbr_u, nbr_v, u, v, n: int,
     if block is None:
         return per.sum(0)
     return per.view(D // block, block, 16).sum(1).int()
+
+
+def flash_attention_ref(q, k, v, q_pos, kv_pos, window=None) -> torch.Tensor:
+    """Dense causal (optionally windowed) GQA attention: the plain version
+    of the flash kernel, as :func:`repro.kernels.ref.flash_attention_ref`.
+
+    q: (B, T, H, D); k, v: (B, S, Hkv, D); positions (B, T) / (B, S) int.
+    Key j is visible to query i iff ``kv_pos[j] <= q_pos[i]`` (and, with a
+    window, ``kv_pos[j] > q_pos[i] - window``).  Scores, softmax and the
+    weighted sum in f32; the output in q's dtype.  A query that sees no
+    key gets the mean of v over all S slots (every score is -1e30).
+    """
+    B, T, H, D = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, T, Hkv, H // Hkv, D).float()
+    s = torch.einsum("btkgd,bskd->bkgts", qg, k.float()) / math.sqrt(D)
+    mask = kv_pos[:, None, :] <= q_pos[:, :, None]
+    if window is not None:
+        mask &= kv_pos[:, None, :] > q_pos[:, :, None] - window
+    s = torch.where(mask[:, None, None], s, -1e30)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgts,bskd->btkgd", w, v.float())
+    return o.reshape(B, T, H, D).to(q.dtype)

@@ -1,0 +1,185 @@
+"""GQA attention: the dense reference, the flash kernel, single-token decode.
+
+Counterpart of the GQA half of :mod:`repro.models.attention`.  Projection
+weights are ``nn.Linear`` in PyTorch's (out, in) layout over the flattened
+head dim (``H * hd``), as JAX's flat ``(d, H * hd)`` tables transposed
+(:mod:`repro_torch.models.convert`).  The attention core is a submodule
+(:class:`AttentionCore`), so a forward hook sees its q, k, v, positions
+and output.  MLA waits for a later slice.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..config.base import ModelConfig, RunConfig
+from ..kernels import ops as kops
+from .layers import apply_rope, rms_norm, rope_tables
+from .params import ParamDef
+
+NEG_INF = -1e30
+SENTINEL = 2**30  # position of an empty cache slot
+
+
+class AttnCache(NamedTuple):
+    """Decode cache with flattened kv feature dim: k, v (..., B, S, Hkv*hd).
+
+    ``pos`` holds the absolute position in each slot (``SENTINEL`` =
+    empty), so a sliding-window cache is a plain ring buffer: the write
+    index is ``cache_pos % S`` and masking falls out of the position
+    comparison.  Unlike the JAX package's functional update, the port
+    writes new keys into these tensors in place (a decode step then moves
+    O(new tokens), not the whole cache).
+    """
+
+    k: torch.Tensor
+    v: torch.Tensor
+    pos: torch.Tensor  # (..., B, S) int32
+
+
+def attn_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    out_q, out_kv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    defs = {
+        "wq": ParamDef((d, out_q), ("embed", "heads_flat")),
+        "wk": ParamDef((d, out_kv), ("embed", "kv_flat")),
+        "wv": ParamDef((d, out_kv), ("embed", "kv_flat")),
+        "wo": ParamDef((out_q, d), ("heads_flat", "embed")),
+    }
+    if cfg.qkv_bias:
+        defs["bq"] = ParamDef((out_q,), ("heads_flat",), "zeros")
+        defs["bk"] = ParamDef((out_kv,), ("kv_flat",), "zeros")
+        defs["bv"] = ParamDef((out_kv,), ("kv_flat",), "zeros")
+    if cfg.qk_norm:
+        defs["q_norm"] = ParamDef((hd,), (None,), "ones")
+        defs["k_norm"] = ParamDef((hd,), (None,), "ones")
+    return defs
+
+
+def _grouped(q, k):
+    """q (B, T, H, hd) as (B, T, Hkv, G, hd), matching k's (B, S, Hkv, hd)."""
+    B, T, H, hd = q.shape
+    Hkv = k.shape[2]
+    return q.reshape(B, T, Hkv, H // Hkv, hd)
+
+
+def _bias(q_pos, kv_pos, window):
+    """(B, T, S) f32: 0 where key s is visible to query t, else NEG_INF."""
+    mask = kv_pos[:, None, :] <= q_pos[:, :, None]
+    if window is not None:
+        mask &= kv_pos[:, None, :] > q_pos[:, :, None] - window
+    return torch.where(mask, 0.0, NEG_INF)
+
+
+def _dense_attention(q, k, v, q_pos, kv_pos, window: Optional[int]):
+    """Rectangular attention: f32 scores, weights cast to v's dtype."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("btkgd,bskd->bkgts", _grouped(q, k).float(),
+                          k.float()) * scale
+    scores = scores + _bias(q_pos, kv_pos, window)[:, None, None]
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgts,bskd->btkgd", w.to(v.dtype), v)
+    return out.reshape(q.shape)
+
+
+def _decode_attention(q, k, v, q_pos, kv_pos, window):
+    """Single-token decode: q (B, 1, H, hd) against the whole cache."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("btkgd,bskd->bkgts", _grouped(q, k).float(),
+                     k.float()) * scale
+    s = s + _bias(q_pos, kv_pos, window)[:, None, None]
+    w = torch.softmax(s, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgts,bskd->btkgd", w, v)
+    return out.reshape(q.shape)
+
+
+def attention_core(q, k, v, q_pos, kv_pos, *, impl: str,
+                   window: Optional[int]):
+    """q (B, T, H, hd), k/v (B, S, Hkv, hd) -> (B, T, H, hd).
+
+    One query against a longer cache takes the decode path whatever
+    ``impl`` says (as in JAX); ``"flash"`` is the CUDA kernel (its plain
+    version on a CPU tensor), ``"dense"`` the einsum reference.
+    """
+    if q.shape[1] == 1 and k.shape[1] > 1:
+        return _decode_attention(q, k, v, q_pos, kv_pos, window)
+    if impl == "dense":
+        return _dense_attention(q, k, v, q_pos, kv_pos, window)
+    if impl == "flash":
+        return kops.flash_attention(q, k, v, q_pos, kv_pos, window=window)
+    raise ValueError(f"unknown attention impl {impl!r}")
+
+
+class AttentionCore(nn.Module):
+    """:func:`attention_core` as a module (no weights): the seam a forward
+    hook uses to see each layer's q, k, v, positions and output."""
+
+    def __init__(self, impl: str, window: Optional[int]):
+        super().__init__()
+        self.impl = impl
+        self.window = window
+
+    def forward(self, q, k, v, q_pos, kv_pos):
+        return attention_core(q, k, v, q_pos, kv_pos, impl=self.impl,
+                              window=self.window)
+
+
+class GQA(nn.Module):
+    """The GQA block body (no residual or norm), as JAX's ``gqa_apply``."""
+
+    def __init__(self, cfg: ModelConfig, run: RunConfig):
+        super().__init__()
+        d, hd = cfg.d_model, cfg.resolved_head_dim
+        self.cfg = cfg
+        self.wq = nn.Linear(d, cfg.n_heads * hd, bias=cfg.qkv_bias)
+        self.wk = nn.Linear(d, cfg.n_kv_heads * hd, bias=cfg.qkv_bias)
+        self.wv = nn.Linear(d, cfg.n_kv_heads * hd, bias=cfg.qkv_bias)
+        self.wo = nn.Linear(cfg.n_heads * hd, d, bias=False)
+        if cfg.qk_norm:
+            self.q_norm = nn.Parameter(torch.ones(hd))
+            self.k_norm = nn.Parameter(torch.ones(hd))
+        self.core = AttentionCore(run.attention_impl, cfg.sliding_window)
+
+    @staticmethod
+    def _proj(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+        b = None if lin.bias is None else lin.bias.to(x.dtype)
+        return F.linear(x, lin.weight.to(x.dtype), b)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                cache: Optional[AttnCache] = None, cache_pos: int = 0):
+        """x (B, T, d), positions (B, T) int32.  With a cache (one layer's
+        k, v (B, S, Hkv*hd) and pos (B, S)), the new keys are written at
+        slots ``cache_pos % S`` onward and the whole cache is attended.
+        Returns ``(out (B, T, d), cache)``."""
+        cfg = self.cfg
+        B, T, _ = x.shape
+        hd, H, Hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+        q = self._proj(self.wq, x).reshape(B, T, H, hd)
+        k = self._proj(self.wk, x).reshape(B, T, Hkv, hd)
+        v = self._proj(self.wv, x).reshape(B, T, Hkv, hd)
+        if cfg.qk_norm:
+            q = rms_norm(q, self.q_norm, cfg.norm_eps)
+            k = rms_norm(k, self.k_norm, cfg.norm_eps)
+        cos, sin = rope_tables(positions, hd, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+
+        kv_pos = positions
+        if cache is not None:
+            S = cache.k.shape[1]
+            write = cache_pos % S
+            if write + T > S:
+                raise ValueError(f"{T} new keys at slot {write} overflow a "
+                                 f"cache of {S} slots")
+            cache.k[:, write:write + T] = k.reshape(B, T, Hkv * hd)
+            cache.v[:, write:write + T] = v.reshape(B, T, Hkv * hd)
+            cache.pos[:, write:write + T] = positions
+            k = cache.k.view(B, S, Hkv, hd).to(x.dtype)
+            v = cache.v.view(B, S, Hkv, hd).to(x.dtype)
+            kv_pos = cache.pos
+        out = self.core(q, k, v, positions, kv_pos).reshape(B, T, H * hd)
+        return F.linear(out, self.wo.weight.to(x.dtype)), cache

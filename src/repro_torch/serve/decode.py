@@ -1,0 +1,88 @@
+"""Serving steps: batched prefill and single-token decode over the cache.
+
+Counterpart of :mod:`repro.serve.decode`, with the same contracts; the
+weights are the :class:`~repro_torch.models.transformer.Transformer`
+passed where JAX passes ``params``.  Each step runs without autograd.
+The cache is updated in place and also returned, as JAX returns its new
+cache.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..config.base import ModelConfig, RunConfig
+from ..models.transformer import Transformer
+
+
+def _checked(model: Transformer, cfg: ModelConfig, run: RunConfig):
+    if model.cfg != cfg or model.run != run:
+        raise ValueError(f"the step was built for ({cfg}, {run}), the model "
+                         f"for ({model.cfg}, {model.run})")
+
+
+def _arange_positions(B: int, T: int, device) -> torch.Tensor:
+    """(B, T) int32 positions 0..T-1, contiguous (the flash kernel's
+    layout)."""
+    return torch.arange(T, dtype=torch.int32, device=device).repeat(B, 1)
+
+
+def make_prefill_step(cfg: ModelConfig, run: RunConfig):
+    """The cacheless prefill step: ``(model, tokens[, positions]) ->
+    logits`` over a (B, T) prompt batch.  Use
+    :func:`make_prefill_cache_step` when decode will follow."""
+
+    @torch.inference_mode()
+    def prefill_step(model: Transformer, tokens: torch.Tensor,
+                     positions: Optional[torch.Tensor] = None):
+        _checked(model, cfg, run)
+        if positions is None:
+            positions = _arange_positions(*tokens.shape, tokens.device)
+        return model(tokens, positions)[0]
+
+    return prefill_step
+
+
+def make_prefill_cache_step(cfg: ModelConfig, run: RunConfig):
+    """Prefill that also fills the decode cache from slot 0:
+    ``(model, tokens, cache) -> (logits (B, T, V), cache)``."""
+
+    @torch.inference_mode()
+    def prefill(model: Transformer, tokens: torch.Tensor, cache):
+        _checked(model, cfg, run)
+        positions = _arange_positions(*tokens.shape, tokens.device)
+        return model(tokens, positions, cache=cache, cache_pos=0)
+
+    return prefill
+
+
+def make_serve_step(cfg: ModelConfig, run: RunConfig, *,
+                    greedy: bool = True):
+    """The single-token decode step: ``(model, cache, tokens, cache_pos[,
+    generator]) -> (next (B, 1) int32, cache, logits (B, V))``.
+
+    ``tokens`` (B, 1) is the newest token, ``cache_pos`` (an int) its
+    position.  ``greedy=False`` with a ``torch.Generator`` samples from
+    the softmax of the logits instead of taking the argmax.
+    """
+
+    @torch.inference_mode()
+    def serve_step(model: Transformer, cache, tokens: torch.Tensor,
+                   cache_pos: int,
+                   generator: Optional[torch.Generator] = None):
+        _checked(model, cfg, run)
+        B = tokens.shape[0]
+        positions = torch.full((B, 1), cache_pos, dtype=torch.int32,
+                               device=tokens.device)
+        logits, cache = model(tokens, positions, cache=cache,
+                              cache_pos=cache_pos)
+        logits = logits[:, -1]
+        if greedy or generator is None:
+            nxt = logits.argmax(-1)
+        else:
+            nxt = torch.multinomial(torch.softmax(logits, -1), 1,
+                                    generator=generator)[:, 0]
+        return nxt.to(torch.int32)[:, None], cache, logits
+
+    return serve_step

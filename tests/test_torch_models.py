@@ -1,0 +1,366 @@
+"""The port's qwen3-4b serving path against the JAX package at smoke size
+(``qwen3-4b:smoke``: 2 layers, d 64, 4 heads, 2 KV heads, hd 16).
+
+Both packages run the same weights (JAX's ``init_model``, handed over as
+numpy through :func:`repro_torch.models.convert.from_jax_params`) on the
+same numpy-drawn tokens and activations, in float32 unless a test says
+otherwise.  Tolerances: 1e-4 on logits (f32 einsums summed in another
+order), 1e-3 where decode is compared with the full forward (as
+``tests/test_models.py`` does in JAX), 2e-2 in bf16 (the kernel tests').
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.config import RunConfig as JaxRun
+from repro.config import get_config as jax_get_config
+from repro.config import list_configs as jax_list_configs
+from repro.models import attention as jattn
+from repro.models import layers as jlayers
+from repro.models import transformer as jtfm
+from repro.serve.decode import make_prefill_cache_step as jax_prefill
+from repro.serve.decode import make_prefill_step as jax_prefill_step
+from repro.serve.decode import make_serve_step as jax_serve
+from repro_torch.config import (MLAConfig, MoEConfig, RunConfig, RWKVConfig,
+                                SSMConfig, get_config)
+from repro_torch.models import layers as tlayers
+from repro_torch.models import transformer as ttfm
+from repro_torch.models.attention import AttnCache
+from repro_torch.models.convert import from_jax_params
+from repro_torch.models.params import count_params
+from repro_torch.serve import (make_prefill_cache_step, make_prefill_step,
+                               make_serve_step)
+
+ARCH = "qwen3-4b"
+# port impl -> JAX impl
+IMPLS = {"flash": "pallas", "dense": "dense"}
+B, T, MAX_SEQ = 2, 16, 32
+
+
+@pytest.fixture(scope="module")
+def cfg():
+    return get_config(ARCH, smoke=True)
+
+
+@pytest.fixture(scope="module")
+def jax_params():
+    jcfg = jax_get_config(ARCH, smoke=True)
+    params = jtfm.init_model(jcfg, jax.random.PRNGKey(0))
+    return {k: np.asarray(v) for k, v in params.items()}
+
+
+def _runs(impl, dtype="float32"):
+    return (RunConfig(attention_impl=impl, compute_dtype=dtype),
+            JaxRun(attention_impl=IMPLS[impl], attention_chunk=8,
+                   remat="none", compute_dtype=dtype))
+
+
+def _model(cfg, jax_params, run):
+    return from_jax_params(cfg, jax_params, run=run, device="cpu")
+
+
+def _tokens(cfg, seed=0, n=T):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, cfg.vocab_size, (B, n)).astype(np.int32)
+
+
+def _err(a, b):
+    return float(np.abs(np.asarray(a, np.float32)
+                        - np.asarray(b, np.float32)).max())
+
+
+def test_configs_match_jax(cfg):
+    for smoke in (False, True):
+        assert (dataclasses.asdict(get_config(ARCH, smoke=smoke))
+                == dataclasses.asdict(jax_get_config(ARCH, smoke=smoke)))
+    full = get_config(ARCH)
+    assert (full.n_layers, full.d_model, full.vocab_size) == (36, 2560,
+                                                               151936)
+
+
+@pytest.mark.parametrize("arch", sorted(set(jax_list_configs()) - {ARCH}))
+def test_unported_arch_raises_key_error(arch):
+    with pytest.raises(KeyError, match="qwen3-4b"):
+        get_config(arch)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("moe", MoEConfig(n_experts=4, top_k=2, d_ff_expert=32)),
+    ("mla", MLAConfig()),
+    ("ssm", SSMConfig()),
+    ("rwkv", RWKVConfig()),
+    ("n_prefix_embeds", 4),
+])
+def test_unported_families_raise(cfg, field, value):
+    other = dataclasses.replace(cfg, **{field: value})
+    with pytest.raises(NotImplementedError, match=field):
+        ttfm.model_defs(other)
+    with pytest.raises(NotImplementedError, match=field):
+        ttfm.Transformer(other, RunConfig())
+
+
+def test_model_defs_match_jax(cfg):
+    want = jtfm.model_defs(jax_get_config(ARCH, smoke=True))
+    got = ttfm.model_defs(cfg)
+    assert {k: d.shape for k, d in got.items()} == {
+        k: d.shape for k, d in want.items()}
+    from repro.models.params import count_params as jax_count_params
+    assert count_params(got) == jax_count_params(want)
+
+
+def test_from_jax_params_round_trip(cfg, jax_params):
+    """Every JAX leaf lands in the module, whole and unchanged, and the
+    module holds nothing else."""
+    m = _model(cfg, jax_params, RunConfig(compute_dtype="float32"))
+    L = cfg.n_layers
+    got = {"embed": m.embed.weight, "final_ln": m.final_ln,
+           "unembed": m.unembed.weight.T}
+    for name, mod in [("attn/wq", "attn.wq"), ("attn/wk", "attn.wk"),
+                      ("attn/wv", "attn.wv"), ("attn/wo", "attn.wo"),
+                      ("mlp/w_gate", "mlp.w_gate"), ("mlp/w_up", "mlp.w_up"),
+                      ("mlp/w_down", "mlp.w_down")]:
+        got["layers/" + name] = torch.stack(
+            [m.get_submodule(f"layers.{i}.{mod}").weight.T for i in range(L)])
+    for name in ("ln1", "ln2", "attn/q_norm", "attn/k_norm"):
+        got["layers/" + name] = torch.stack(
+            [m.get_parameter(f"layers.{i}.{name.replace('/', '.')}")
+             for i in range(L)])
+    assert set(got) == set(jax_params)
+    for k, v in jax_params.items():
+        assert tuple(got[k].shape) == v.shape, k
+        np.testing.assert_array_equal(got[k].numpy(), v, err_msg=k)
+    assert sum(p.numel() for p in m.parameters()) == sum(
+        v.size for v in jax_params.values())
+    assert not any(p.requires_grad for p in m.parameters())
+
+
+def test_from_jax_params_rejects_a_wrong_table(cfg, jax_params):
+    with pytest.raises(KeyError, match="missing"):
+        from_jax_params(cfg, {k: v for k, v in jax_params.items()
+                              if k != "final_ln"}, device="cpu")
+    bad = dict(jax_params, final_ln=np.ones(3, np.float32))
+    with pytest.raises(ValueError, match="final_ln"):
+        from_jax_params(cfg, bad, device="cpu")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rms_norm_rope_mlp_match_jax(cfg, jax_params, dtype):
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((B, T, cfg.d_model), dtype=np.float32)
+    w = rng.standard_normal(cfg.d_model, dtype=np.float32)
+    jx = jnp.asarray(x, dtype=dtype)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    assert _err(tlayers.rms_norm(tx, torch.from_numpy(w), 1e-6).float(),
+                jlayers.rms_norm(jx, jnp.asarray(w), 1e-6)) < tol
+
+    hd = cfg.resolved_head_dim
+    pos = rng.integers(0, 4096, (B, T)).astype(np.int32)
+    jc, js = jlayers.rope_tables(jnp.asarray(pos), hd, cfg.rope_theta)
+    tc, ts = tlayers.rope_tables(torch.from_numpy(pos), hd, cfg.rope_theta)
+    assert _err(tc, jc) < 1e-5 and _err(ts, js) < 1e-5
+    h = rng.standard_normal((B, T, cfg.n_heads, hd), dtype=np.float32)
+    assert _err(tlayers.apply_rope(torch.from_numpy(h).to(tx.dtype), tc,
+                                   ts).float(),
+                jlayers.apply_rope(jnp.asarray(h, dtype=dtype), jc, js)) < tol
+
+    m = _model(cfg, jax_params, RunConfig(compute_dtype=dtype))
+    jp = {k[len("layers/"):]: jnp.asarray(v[0])
+          for k, v in jax_params.items() if k.startswith("layers/")}
+    want = jlayers.mlp_apply(jp, "mlp/", jx, jx.dtype)
+    assert _err(m.layers[0].mlp(tx).float(), want) < (
+        1e-5 if dtype == "float32" else 2e-2)
+
+
+@pytest.mark.parametrize("impl", sorted(IMPLS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_cache", [False, True], ids=["nocache", "cache"])
+def test_gqa_matches_jax(cfg, jax_params, impl, dtype, with_cache):
+    """One layer's attention block: projections, qk-norm, RoPE, the cache
+    write and the attention core, f32 at 1e-5 and bf16 at 2e-2."""
+    run, jrun = _runs(impl, dtype)
+    m = _model(cfg, jax_params, run)
+    jcfg = jax_get_config(ARCH, smoke=True)
+    jp = {k[len("layers/"):]: jnp.asarray(v[0], dtype=dtype)
+          for k, v in jax_params.items() if k.startswith("layers/")}
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((B, T, cfg.d_model), dtype=np.float32)
+    pos = np.tile(np.arange(T, dtype=np.int32), (B, 1))
+    jx, tx = jnp.asarray(x, dtype=dtype), torch.from_numpy(x).to(
+        getattr(torch, dtype))
+    jcache = tcache = None
+    if with_cache:
+        full = ttfm.init_cache(cfg, B, MAX_SEQ, dtype=torch.float32,
+                               device="cpu")
+        tcache = AttnCache(full.k[0], full.v[0], full.pos[0])
+        jcache = jattn.AttnCache(*(jnp.asarray(t.numpy()) for t in tcache))
+    want, jnew = jattn.gqa_apply(jcfg, jrun, jp, "attn/", jx,
+                                 jnp.asarray(pos), jcache, 0)
+    with torch.inference_mode():
+        got, tnew = m.layers[0].attn(tx, torch.from_numpy(pos), tcache, 0)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    assert got.dtype == tx.dtype
+    assert _err(got.float(), want) < tol
+    if with_cache:
+        for a, b in zip(tnew, jnew):
+            assert _err(a, b) < tol
+
+
+def _jax_prefill_and_decode(jax_params, jrun, toks, steps):
+    jcfg = jax_get_config(ARCH, smoke=True)
+    params = {k: jnp.asarray(v) for k, v in jax_params.items()}
+    cache = jax.tree.map(lambda a: a.astype(jnp.float32)
+                         if a.dtype == jnp.bfloat16 else a,
+                         jtfm.init_cache(jcfg, B, MAX_SEQ))
+    logits, cache = jax.jit(jax_prefill(jcfg, jrun))(params,
+                                                     jnp.asarray(toks), cache)
+    prefill = (np.asarray(logits), jax.tree.map(np.asarray, cache["layers"]))
+    serve = jax.jit(jax_serve(jcfg, jrun))
+    tok = jnp.argmax(logits[:, -1], -1).astype(jnp.int32)[:, None]
+    out = []
+    for i in range(steps):
+        tok, cache, lg = serve(params, cache, tok, jnp.int32(T + i))
+        out.append((np.asarray(tok), np.asarray(lg)))
+    return prefill, out
+
+
+def _port_prefill_and_decode(cfg, jax_params, run, toks, steps):
+    m = _model(cfg, jax_params, run)
+    cache = ttfm.init_cache(cfg, B, MAX_SEQ, dtype=torch.float32,
+                            device="cpu")
+    logits, cache = make_prefill_cache_step(cfg, run)(
+        m, torch.from_numpy(toks), cache)
+    prefill = (logits.numpy(), [t.clone().numpy() for t in cache])
+    serve = make_serve_step(cfg, run)
+    tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    out = []
+    for i in range(steps):
+        tok, cache, lg = serve(m, cache, tok, T + i)
+        out.append((tok.numpy(), lg.numpy()))
+    return prefill, out
+
+
+@pytest.mark.parametrize("impl", sorted(IMPLS))
+def test_prefill_and_decode_match_jax(cfg, jax_params, impl):
+    """make_prefill_cache_step logits and filled cache, then 8 greedy
+    make_serve_step steps: identical tokens, logits within 1e-4."""
+    run, jrun = _runs(impl)
+    toks = _tokens(cfg)
+    (jl, jc), jsteps = _jax_prefill_and_decode(jax_params, jrun, toks, 8)
+    (tl, tc), tsteps = _port_prefill_and_decode(cfg, jax_params, run, toks, 8)
+    assert tl.shape == (B, T, cfg.vocab_size) and tl.dtype == np.float32
+    assert _err(tl, jl) <= 1e-4
+    for name, a, b in zip(("k", "v", "pos"), tc, jc):
+        assert a.shape == b.shape, name
+        assert _err(a, b) <= 1e-5, name
+    np.testing.assert_array_equal(tc[2], jc.pos)
+    for (ttok, tlg), (jtok, jlg) in zip(tsteps, jsteps):
+        np.testing.assert_array_equal(ttok, jtok)
+        assert _err(tlg, jlg) <= 1e-4
+
+
+@pytest.mark.parametrize("impl", sorted(IMPLS))
+@pytest.mark.parametrize("variant", [
+    dict(qkv_bias=True), dict(tie_embeddings=True), dict(sliding_window=8),
+], ids=["qkv_bias", "tied", "window"])
+def test_dense_family_options_match_jax(impl, variant):
+    """The dense-family switches other configs use (qwen1.5's qkv bias,
+    granite's tied embeddings, h2o-danube3's sliding window) on the smoke
+    shape: cacheless prefill logits within 1e-4 of JAX."""
+    run, jrun = _runs(impl)
+    jcfg = dataclasses.replace(jax_get_config(ARCH, smoke=True), **variant)
+    cfg = dataclasses.replace(get_config(ARCH, smoke=True), **variant)
+    params = {k: np.asarray(v) for k, v in
+              jtfm.init_model(jcfg, jax.random.PRNGKey(3)).items()}
+    if cfg.qkv_bias:  # JAX initialises biases to zero; make them count
+        rng = np.random.default_rng(6)
+        for b in ("bq", "bk", "bv"):
+            key = "layers/attn/" + b
+            params[key] = rng.standard_normal(params[key].shape,
+                                              dtype=np.float32)
+    toks = _tokens(cfg, seed=7)
+    want = jax.jit(jax_prefill_step(jcfg, jrun))(
+        {k: jnp.asarray(v) for k, v in params.items()}, jnp.asarray(toks))
+    got = make_prefill_step(cfg, run)(
+        from_jax_params(cfg, params, run=run, device="cpu"),
+        torch.from_numpy(toks))
+    assert _err(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("impl", sorted(IMPLS))
+def test_decode_equals_full_forward(cfg, jax_params, impl):
+    """Token-by-token decode through the cache gives the full forward's
+    logits at every position (f32, 1e-3)."""
+    run, _ = _runs(impl)
+    m = _model(cfg, jax_params, run)
+    toks = torch.from_numpy(_tokens(cfg, seed=3))
+    full = make_prefill_step(cfg, run)(m, toks)
+    cache = ttfm.init_cache(cfg, B, T, dtype=torch.float32, device="cpu")
+    serve = make_serve_step(cfg, run)
+    outs = []
+    for t in range(T):
+        _, cache, lg = serve(m, cache, toks[:, t:t + 1], t)
+        outs.append(lg)
+    assert float((full - torch.stack(outs, 1)).abs().max()) < 1e-3
+
+
+def test_prefill_step_equals_prefill_cache_step(cfg, jax_params):
+    run, _ = _runs("flash")
+    m = _model(cfg, jax_params, run)
+    toks = torch.from_numpy(_tokens(cfg, seed=4))
+    cache = ttfm.init_cache(cfg, B, MAX_SEQ, dtype=torch.float32,
+                            device="cpu")
+    with_cache, _ = make_prefill_cache_step(cfg, run)(m, toks, cache)
+    assert torch.allclose(make_prefill_step(cfg, run)(m, toks), with_cache,
+                          atol=1e-5)
+
+
+def test_sampling_follows_the_generator(cfg, jax_params):
+    run, _ = _runs("flash")
+    m = _model(cfg, jax_params, run)
+    serve = make_serve_step(cfg, run, greedy=False)
+    draws = []
+    for _ in range(2):
+        cache = ttfm.init_cache(cfg, B, MAX_SEQ, dtype=torch.float32,
+                                device="cpu")
+        gen = torch.Generator().manual_seed(5)
+        tok = torch.zeros((B, 1), dtype=torch.int32)
+        seq = []
+        for i in range(4):
+            tok, cache, _ = serve(m, cache, tok, i, gen)
+            seq.append(tok)
+        draws.append(torch.cat(seq, 1))
+    assert torch.equal(draws[0], draws[1])
+    assert draws[0].dtype == torch.int32
+    assert ((draws[0] >= 0) & (draws[0] < cfg.vocab_size)).all()
+
+
+def test_step_rejects_a_model_built_for_another_run(cfg, jax_params):
+    m = _model(cfg, jax_params, RunConfig(attention_impl="dense"))
+    with pytest.raises(ValueError, match="built for"):
+        make_prefill_step(cfg, RunConfig(attention_impl="flash"))(
+            m, torch.from_numpy(_tokens(cfg)))
+
+
+def test_cache_overflow_raises(cfg, jax_params):
+    run, _ = _runs("flash")
+    m = _model(cfg, jax_params, run)
+    cache = ttfm.init_cache(cfg, B, 8, dtype=torch.float32, device="cpu")
+    with pytest.raises(ValueError, match="overflow"):
+        make_prefill_cache_step(cfg, run)(m, torch.from_numpy(_tokens(cfg)),
+                                          cache)
+
+
+def test_default_device_raises_without_cuda(cfg, jax_params):
+    """``device=None`` means CUDA: with no card the entry points raise
+    instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is available: the default device runs")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ttfm.init_cache(cfg, B, MAX_SEQ)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        from_jax_params(cfg, jax_params)
