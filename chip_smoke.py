@@ -28,10 +28,13 @@ script exits non-zero and prints no result.  Phases:
 5. flash_kernel — the flash-attention kernel against its plain version
              (``flash_attention_ref``): bf16 at the qwen3-4b prefill shape
              (B 4, T 2048, S 2080, H 32, Hkv 8, D 128) within 2e-2, f32
-             within 2e-5, a windowed case, ragged T/S with offset
-             positions at every supported head dim; CUDA-event times of
-             the kernel, the plain version and SDPA on the equal-work
-             causal slice (T = S = 2048), and the kernel's bound.
+             within 2e-5, windowed cases, ragged T/S with offset
+             positions at every supported head dim, and the edges of the
+             bf16 tiling (T 129 / S 257, G 1 and 8, T 1, window 8); the
+             build must show no ptxas spills in any bf16 instantiation;
+             CUDA-event times of the kernel, the plain version and SDPA on
+             the equal-work causal slice (T = S = 2048), and the kernel's
+             bound.
 6. serve   — the serving main path at qwen3-4b's full width and depth
              (36 layers, d 2560, vocab 151936; bf16 weights from a seeded
              generator): prefill of B 4 x 2048 prompt tokens into the KV
@@ -51,6 +54,7 @@ import concurrent.futures
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -124,8 +128,9 @@ def large_n_case(torch, device):
 
 def flash_inputs(torch, dev, dtype, B, T, S, H, Hkv, D, *, q0=0,
                  filled=None, seed=0):
-    """Random q, k, v and positions: queries at q0..q0+T-1, keys at
-    0..S-1 except that slots from ``filled`` on are empty (SENTINEL)."""
+    """Random q, k, v and positions: queries at q0..q0+T-1 (q0 an int, or
+    one offset per batch row), keys at 0..S-1 except that slots from
+    ``filled`` on are empty (SENTINEL)."""
     from repro_torch.models.attention import SENTINEL
 
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -133,7 +138,9 @@ def flash_inputs(torch, dev, dtype, B, T, S, H, Hkv, D, *, q0=0,
     def normal(*shape):
         return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
 
-    q_pos = (torch.arange(T, dtype=torch.int32, device=dev) + q0).repeat(B, 1)
+    offsets = torch.as_tensor(q0, dtype=torch.int32, device=dev).reshape(-1, 1)
+    q_pos = (torch.arange(T, dtype=torch.int32, device=dev)
+             + offsets).expand(B, T).contiguous()
     kv_pos = torch.arange(S, dtype=torch.int32, device=dev)
     if filled is not None:
         kv_pos[filled:] = SENTINEL
@@ -157,6 +164,20 @@ def plain_f32(torch, ref, q, k, v, q_pos, kv_pos, window):
     results a hair apart can land one bf16 step apart (0.03125 for
     outputs in [4, 8)) without either being wrong."""
     return ref(q.float(), k.float(), v.float(), q_pos, kv_pos, window=window)
+
+
+def ptxas_spills(log):
+    """{kernel: (spill store bytes, spill load bytes)} from ``-Xptxas -v``."""
+    spills, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn is not None:
+            spills[fn] = (int(m.group(1)), int(m.group(2)))
+    return spills
 
 
 def kernel_err(got, want):
@@ -185,6 +206,17 @@ def flash_kernel_phase(torch, dev):
          None, 2e-2),
         ("square_f32", f32, (2, 512, 512, 8, 2, 128), {}, None, 2e-5),
         ("window_f32_d120", f32, (2, 300, 300, 8, 2, 120), {}, 100, 2e-5),
+        ("window_bf16_d120", bf16, (2, 300, 300, 8, 2, 120), {}, 100, 2e-2),
+        # the edges of the bf16 tiling: one row past a 128-row q tile and
+        # one key past two 128-key kv tiles, another offset per batch row,
+        # G = 1 and G = 8, a single query, a window inside one kv tile
+        ("edge_tiles_bf16", bf16, (2, 129, 257, 4, 2, 128),
+         dict(q0=(128, 61)), None, 2e-2),
+        ("gqa_g1_bf16", bf16, (2, 200, 200, 8, 8, 128), {}, None, 2e-2),
+        ("gqa_g8_bf16", bf16, (2, 200, 200, 8, 1, 128), {}, None, 2e-2),
+        ("single_query_bf16", bf16, (2, 1, 77, 4, 2, 128),
+         dict(q0=(60, 200)), None, 2e-2),
+        ("window_8_bf16", bf16, (2, 300, 300, 4, 2, 128), {}, 8, 2e-2),
     ]
     for D in (16, 32, 64, 120, 128):  # ragged T and S, offset queries
         for dtype, tol in ((f32, 2e-5), (bf16, 2e-2)):
@@ -232,7 +264,8 @@ def flash_kernel_phase(torch, dev):
                                     Hkv=k.shape[2], D=D),
          visible_pairs=pairs, flops=flops, bytes=nbytes, flop_ms=flop_ms,
          byte_ms=byte_ms, tflop_per_s=flops / ms / 1e9,
-         kernel_over_bound=ms / bound_ms, **out)
+         kernel_over_bound=ms / bound_ms, library_over_kernel=library_ms / ms,
+         **out)
     return out
 
 
@@ -473,6 +506,12 @@ def run(dev) -> int:
         emit("build", kernel=name, seconds=build_s,
              library=os.path.relpath(lib_path, ROOT), ptxas=ptxas, card=smi,
              torch=torch.__version__, cuda=torch.version.cuda)
+    # the bf16 flash kernel keeps S, P and O in registers: no spills
+    bf16_spills = {fn: sp for fn, sp in ptxas_spills(
+        builds["flash_attention"][1]).items() if "flash_kernel_bf16" in fn}
+    check(bf16_spills and not any(st or ld for st, ld in bf16_spills.values()),
+          f"bf16 flash kernel spills or no ptxas report: {bf16_spills}")
+    emit("build_spills", kernel="flash_attention", bf16=bf16_spills)
 
     # 2. kernel against its plain version, every chunk of the main path ------
     t0 = time.perf_counter()

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``build/kernels/lib<name>-<hash>.so``
 under the repository root (``.gitignore`` lists ``build/``).  The hash
-covers the source and the flags, so an edited kernel rebuilds and an
-unchanged one is reused.  Nothing here runs at import time: the CPU tests
-import every module on machines with no ``nvcc``.
+covers the source, every ``csrc/*.cuh`` header and the flags, so an
+edited kernel or header rebuilds and an unchanged one is reused.  Nothing
+here runs at import time: the CPU tests import every module on machines
+with no ``nvcc``.
 """
 from __future__ import annotations
 
@@ -37,18 +38,29 @@ def _nvcc() -> str:
     return path
 
 
+def source_digest(name: str, csrc: Path = CSRC,
+                  flags: "tuple[str, ...]" = NVCC_FLAGS) -> str:
+    """Hash of ``csrc/<name>.cu``, every ``csrc/*.cuh`` (sorted by name)
+    and the flags: what a build of ``name`` depends on."""
+    h = hashlib.sha256()
+    for path in [csrc / f"{name}.cu", *sorted(csrc.glob("*.cuh"))]:
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(flags).encode())
+    return h.hexdigest()[:16]
+
+
 def build(name: str) -> "tuple[Path, str]":
     """Compile ``csrc/<name>.cu`` unless an up-to-date library exists.
 
     Returns ``(library path, compiler log)``; the log holds ``ptxas``'s
-    register and spill report on a fresh build and is empty on reuse.
+    register and spill report, kept beside the library so that a reused
+    library returns the log of the build that made it.
     """
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{name}-{digest}.so"
-    if lib.exists():
-        return lib, ""
+    lib = BUILD_DIR / f"lib{name}-{source_digest(name)}.so"
+    log_path = lib.with_suffix(".log")
+    if lib.exists() and log_path.exists():
+        return lib, log_path.read_text()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
@@ -56,8 +68,12 @@ def build(name: str) -> "tuple[Path, str]":
     if proc.returncode:
         raise RuntimeError(f"nvcc failed on {src.name} "
                            f"(exit {proc.returncode}):\n{proc.stderr}")
+    log = proc.stdout + proc.stderr
+    log_tmp = log_path.with_name(f"{log_path.name}.{os.getpid()}.tmp")
+    log_tmp.write_text(log)
+    os.replace(log_tmp, log_path)
     os.replace(tmp, lib)  # atomic: concurrent builders never see half a file
-    return lib, proc.stdout + proc.stderr
+    return lib, log
 
 
 @functools.lru_cache(maxsize=None)

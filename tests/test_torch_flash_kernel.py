@@ -173,19 +173,66 @@ def test_cpu_path_does_not_count_launches():
     assert flash_attention.launches == before
 
 
+def _edge_tiles():
+    """T = 129, S = 257: one row past a 128-row q tile and one key past
+    two 128-key kv tiles, with another query offset in each batch row."""
+    q_pos = np.stack([np.arange(128, 257), np.arange(61, 190)]).astype(
+        np.int32)
+    return _inputs(2, 129, 257, 4, 2, 128, seed=21, q_pos=q_pos), None
+
+
+def _gqa(group):
+    """H = group * Hkv: G = 1 (H = Hkv) and G = 8."""
+    return lambda: (_inputs(2, 200, 200, 8, 8 // group, 128,
+                            seed=22 + group), None)
+
+
+def _single_query():
+    """T = 1 called directly: one query per batch row, 77 keys."""
+    q_pos = np.array([[60], [200]], np.int32)
+    return _inputs(2, 1, 77, 4, 2, 128, seed=23, q_pos=q_pos), None
+
+
+def _window_8():
+    """A window of 8 keys, smaller than a kv tile, at head dim 128."""
+    return _inputs(2, 300, 300, 4, 2, 128, seed=24), 8
+
+
+def _head_dim(D):
+    """Ragged T and S with offset queries at head dim D."""
+    q_pos = np.broadcast_to(np.arange(73, 173, dtype=np.int32), (2, 100))
+    return lambda: (_inputs(2, 100, 173, 4, 2, D, seed=25 + D, q_pos=q_pos),
+                    None)
+
+
+CUDA_CASES = {
+    **UNSOUND, **EXTRA,
+    "square": lambda: (_inputs(2, 256, 256, 8, 2, 128, seed=3), None),
+    "edge_tiles": _edge_tiles, "gqa_g1": _gqa(1), "gqa_g8": _gqa(8),
+    "single_query": _single_query, "window_8": _window_8,
+    **{f"head_dim_{D}": _head_dim(D) for D in (16, 32, 64, 120, 128)},
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted({**UNSOUND, **EXTRA}) + ["square"])
+@pytest.mark.parametrize("case", sorted(CUDA_CASES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_cuda_kernel_matches_plain_version(cuda_device, case, dtype):
-    if case == "square":
-        arrays, window = _inputs(2, 256, 256, 8, 2, 128, seed=3), None
-    else:
-        arrays, window = {**UNSOUND, **EXTRA}[case]()
+    """f32 against the plain version within 2e-5.  bf16 against the plain
+    version's f32 output on the same input values, the error scaled by
+    max(1, |want|): the plain version's own bf16 output rounds once more,
+    so two right answers can sit one bf16 step apart (0.03125 in [4, 8))."""
+    arrays, window = CUDA_CASES[case]()
     args = _torch(arrays, dtype, cuda_device)
     before = flash_attention.launches
     got = flash_attention(*args, window=window)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
-    want = flash_attention_ref(*args, window=window)
-    assert float((got.float() - want.float()).abs().max()) < TOL[dtype]
+    assert got.dtype == dtype and got.shape == args[0].shape
+    want = flash_attention_ref(*(t.float() for t in args[:3]), *args[3:],
+                               window=window)
+    err = (got.float() - want).abs()
+    if dtype == torch.bfloat16:
+        err = err / want.abs().clamp(min=1.0)
+    assert float(err.max()) < TOL[dtype]
