@@ -7,24 +7,36 @@ It imports only the port (``src/repro_torch``), never ``jax`` or
 ``repro``.  Every phase prints one JSON line; any mismatch raises, so the
 script exits non-zero and prints no result.  Phases:
 
-1. build   — compile ``census_tiles.cu`` and ``flash_attention.cu`` with
-             nvcc (sm_90a) from the checkout, both at once, and load them;
-             print the card and each ptxas report.
+1. build   — compile ``census_csr.cu``, ``census_tiles.cu`` and
+             ``flash_attention.cu`` with nvcc (sm_90a) from the checkout,
+             all at once, and load them; print the card and each ptxas
+             report.
 2. kernel  — on the Slashdot-sized R-MAT stand-in (the paper's Table 4.1
-             network at its published size), replay every chunk the main
-             path dispatches: the CUDA kernel against its plain torch
-             version on the same tiles, bit-equal, each timed with CUDA
-             events beside its memory bound; then the large-n tile case
-             whose exact bin 012 is 134217760.
+             network at its published size), every chunk of the main
+             path's schedule through the six-tile kernel (the Pallas
+             kernel's interface, off the main path) against its plain
+             torch version on the same tiles, bit-equal, each timed with
+             CUDA events beside its memory bound; then the large-n tile
+             case whose exact bin 012 is 134217760.
+   csr_kernel — the same chunks through the CSR kernel (the main path's
+             kernel) against ``census_csr_ref``, bit-equal, timed, with
+             each chunk's bytes and compares bound; the large-n case as a
+             graph through the CSR kernel.
 3. small   — ``compile(...).run(g)`` on R-MAT graphs of 64-256 vertices,
              both backends and several bucket sets, against the port's
              brute-force census.
 4. full    — the census main path, ``compile(g, ("triad_census",),
              EngineConfig(backend="tiles")).run_raw(g)``, cold then warm,
              bit-identical to ``backend="search"`` on the card, one
-             device->host copy per run, one kernel launch per chunk;
-             then one more warm run under torch.profiler: device time by
-             kernel and the device's idle share.
+             device->host copy per run, one CSR-kernel launch per chunk
+             and no six-tile launch; then one more warm run under
+             torch.profiler: device time by kernel, the device's idle
+             share, and no tile gather.
+   amazon  — the main path on the Amazon stand-in at its published size
+             (3,015,102 dyads, max degree 20,206): cold and warm census
+             time, peak memory, bins equal to ``"search"`` and summing to
+             C(n, 3), and the CSR kernel against its plain version on the
+             first and last chunk of each bucket.
 5. flash_kernel — the flash-attention kernel against its plain version
              (``flash_attention_ref``): bf16 at the qwen3-4b prefill shape
              (B 4, T 2048, S 2080, H 32, Hkv 8, D 128) within 2e-2, f32
@@ -63,7 +75,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak memory rate
 BF16_FLOP_PER_S = 989e12  # H100 SXM published dense bf16 tensor-core peak
 BIN012_LARGE_N = 134217760  # exact bin 012 of the large-n tile case
-KERNELS = ("census_tiles", "flash_attention")
+INT32_LANES_PER_SM = 64  # Hopper: int32 results per SM per clock
+KERNELS = ("census_csr", "census_tiles", "flash_attention")
+T0 = time.perf_counter()
 
 # the serving cell: qwen3-4b at full width, B prompts of PROMPT tokens,
 # NEW greedy tokens each (the KV cache holds PROMPT + NEW slots)
@@ -76,7 +90,8 @@ DECODE_T = 64
 
 
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields,
+                      "elapsed_s": time.perf_counter() - T0}), flush=True)
 
 
 def check(cond, message):
@@ -85,10 +100,15 @@ def check(cond, message):
 
 
 def event_ms(torch, fn, reps):
-    """Mean device time of ``fn`` over ``reps`` calls after one warm call."""
+    """Mean device time of ``fn`` over ``reps`` calls after one warm call.
+
+    The card first sleeps for ~2.5 ms, so the host has queued the calls
+    before the start event: a kernel shorter than its launch's host cost
+    is then timed back to back, not at the host's pace."""
     fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(5_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -124,6 +144,110 @@ def large_n_case(torch, device):
              tile(nbr_u), tile([[u[i]] for i in range(D)])]
     return (torch.as_tensor(u, device=device),
             torch.as_tensor(v, device=device), n, tiles)
+
+
+def large_n_csr_case(torch, device, extras):
+    """The large-n tile case as a graph (n = 2**22 + 3, 32 asymmetric
+    dyads 2i -> 2i+1).  A CSR cannot hold the tile case's extra
+    neighbours without arcs, so ``extras`` makes them mutual arcs u <-> w
+    instead; without them bin 012 is exactly 32 * (n - 2) = 134217760.
+    Returns ``(n, arrays with flags, u, v)``."""
+    import numpy as np
+
+    from repro_torch.core import census as tcensus
+    from repro_torch.core.graph import from_edges
+    from repro_torch.kernels.ops import build_arc_flags_device
+    from repro_torch.kernels.triad_census import SENTINEL
+
+    n, D = 2**22 + 3, 32
+    u = np.arange(D, dtype=np.int64) * 2
+    src, dst = list(u), list(u + 1)
+    if extras:
+        pick = np.random.default_rng(0).permutation([True] * 16 + [False] * 16)
+        w = n - 1 - np.arange(D)
+        src += list(u[pick]) + list(w[pick])
+        dst += list(w[pick]) + list(u[pick])
+    g = from_edges(n, np.asarray(src), np.asarray(dst), device=device)
+    a = g.arrays
+    flags, counts = build_arc_flags_device(a.out_ptr, a.out_idx, a.nbr_ptr,
+                                           a.nbr_idx)
+    du, dv = tcensus.canonical_dyads(g)
+    pad = (-len(du)) % 32
+    du = np.concatenate([du, np.full(pad, SENTINEL, np.int32)])
+    dv = np.concatenate([dv, np.full(pad, SENTINEL, np.int32)])
+    return (n, a._replace(nbr_flag=flags, nbr_cnt=counts),
+            torch.as_tensor(du, device=device),
+            torch.as_tensor(dv, device=device))
+
+
+def csr_chunk_work(torch, arrays, u, v, block):
+    """What one CSR-kernel launch must do for these dyads: (bytes,
+    compares, candidate lanes, sum of min degrees).  Bytes: every distinct
+    row the dyads touch read once (4-byte index and 1-byte flag an entry,
+    two 4-byte ptr entries), two 4-byte range counts at each end of each
+    dyad, u and v, and the partial rows written.  Compares: each element
+    of the smaller row searched in the larger, min(deg u, deg v) *
+    ceil(log2(max(deg u, deg v) + 1)) over the valid dyads."""
+    from repro_torch.kernels.triad_census import SENTINEL
+
+    valid = u != SENTINEL
+    uv = torch.cat([u[valid], v[valid]]).long()
+    deg = (arrays.nbr_ptr[1:] - arrays.nbr_ptr[:-1]).long()
+    rows = torch.unique(uv)
+    du, dv = deg[u[valid].long()], deg[v[valid].long()]
+    small, large = torch.minimum(du, dv), torch.maximum(du, dv)
+    compares = int((small.double()
+                    * torch.ceil(torch.log2(large.double() + 1))).sum())
+    nbytes = (int((5 * deg[rows] + 8).sum()) + 16 * int(valid.sum())
+              + 8 * u.shape[0] + 64 * (u.shape[0] // block))
+    return (nbytes, compares, int((du + dv).sum()), int(small.sum()))
+
+
+def csr_kernel_phase(torch, g, st, tasks, rates, label):
+    """The CSR kernel against its plain version on ``tasks`` of the tiles
+    stream ``st``, bit-equal; per bucket its CUDA-event time, the plain
+    version's, and the bound from each chunk's own bytes and compares."""
+    from repro_torch.engine.backends import chunk_dyads
+    from repro_torch.kernels.ref import census_csr_ref
+    from repro_torch.kernels.triad_census import census_csr
+
+    per_bucket: dict = {}
+    for task in tasks:
+        u, v, _ = chunk_dyads(st.su, st.sv, task, st.chunk)
+        got = census_csr(u, v, g.n, st.arrays, block=st.block, k=task.width)
+        want = census_csr_ref(u, v, g.n, st.arrays, block=st.block)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        check(err == 0, f"{label}: census_csr != plain at K={task.key}, "
+                        f"dyad {task.start}: max abs err {err}")
+        k_ms = event_ms(torch, lambda: census_csr(
+            u, v, g.n, st.arrays, block=st.block, k=task.width), reps=3)
+        p_ms = event_ms(torch, lambda: census_csr_ref(
+            u, v, g.n, st.arrays, block=st.block), reps=1)
+        nbytes, compares, lanes, min_sum = csr_chunk_work(
+            torch, st.arrays, u, v, st.block)
+        byte_ms = nbytes / rates["bytes"] * 1e3
+        op_ms = compares / rates["int32"] * 1e3
+        b = per_bucket.setdefault(task.key, dict(
+            K=task.key, chunks=0, dyads=0, kernel_ms=0.0, plain_ms=0.0,
+            bytes=0, compares=0, candidate_lanes=0, min_degree_sum=0,
+            byte_ms=0.0, op_ms=0.0, bound_ms=0.0, max_abs_err=0))
+        b["max_abs_err"] = max(b["max_abs_err"], err)
+        b["chunks"] += 1
+        b["dyads"] += min(task.end, task.start + st.chunk) - task.start
+        b["kernel_ms"] += k_ms
+        b["plain_ms"] += p_ms
+        b["bytes"] += nbytes
+        b["compares"] += compares
+        b["candidate_lanes"] += lanes
+        b["min_degree_sum"] += min_sum
+        b["byte_ms"] += byte_ms
+        b["op_ms"] += op_ms
+        b["bound_ms"] += max(byte_ms, op_ms)
+        del u, v, got, want
+    for b in per_bucket.values():
+        emit("csr_kernel_bucket", graph=label, **b)
+    return per_bucket
 
 
 def flash_inputs(torch, dev, dtype, B, T, S, H, Hkv, D, *, q0=0,
@@ -271,7 +395,8 @@ def flash_kernel_phase(torch, dev):
 
 def device_split(torch, fn):
     """Run ``fn`` once under torch.profiler: wall time, device busy time,
-    the device's idle share and the kernels that take the most time."""
+    the device's idle share, the kernels that take the most time and the
+    host ops with the most host time of their own."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -285,11 +410,17 @@ def device_split(torch, fn):
                       if e.device_type == torch.autograd.DeviceType.CUDA),
                      reverse=True)
     busy_ms = sum(ms for ms, _, _ in on_card)
+    on_host = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key)
+                      for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CPU),
+                     reverse=True)
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
                 device_idle_share=1 - busy_ms / wall_ms,
                 kernel_launches=sum(c for _, c, _ in on_card),
                 top=[dict(ms=ms, count=c, kernel=k[:100])
-                     for ms, c, k in on_card[:15]])
+                     for ms, c, k in on_card[:15]],
+                host_top=[dict(ms=ms, count=c, op=k[:60])
+                          for ms, c, k in on_host[:10]])
 
 
 def serve_phase(torch, dev):
@@ -461,6 +592,84 @@ def serve_f32_phase(torch, dev):
     torch.cuda.empty_cache()
 
 
+def amazon_phase(torch, dev, rates):
+    """The census main path on the Amazon stand-in at its published size:
+    cold and warm, against ``"search"`` and C(n, 3), and the CSR kernel
+    against its plain version on the first and last chunk of each bucket.
+    The six-tile route is not run: its tiles would be ~1.2 TB per run."""
+    import numpy as np
+
+    from repro_torch.core import generators
+    from repro_torch.engine import EngineConfig, clear_plan_cache, compile
+    from repro_torch.engine.backends import tiles_stream
+    from repro_torch.kernels.triad_census import census_csr, census_tiles
+
+    t0 = time.perf_counter()
+    g = generators.paper_profile("amazon", scale_down=1.0, seed=0,
+                                 device=dev)
+    emit("graph", name="amazon", n=g.n, arcs=g.m, dyads=g.n_dyads,
+         max_deg=g.max_deg, seconds=time.perf_counter() - t0)
+    cfg = EngineConfig(backend="tiles", device=dev)
+    clear_plan_cache()
+    torch.cuda.synchronize()
+    census_csr.launches = census_tiles.launches = 0
+    t0 = time.perf_counter()
+    plan = compile(g, ("triad_census",), cfg)
+    raw_cold = plan.run_raw(g)
+    cold_s = time.perf_counter() - t0
+    check(census_csr.launches == plan.stats["chunks"] > 0
+          and census_tiles.launches == 0,
+          f"amazon cold run: {census_csr.launches} csr launches, "
+          f"{census_tiles.launches} tile launches, {plan.stats}")
+    torch.cuda.reset_peak_memory_stats()
+    census_csr.launches = 0
+    chunks0 = plan.stats["chunks"]
+    t0 = time.perf_counter()
+    raw_warm = plan.run_raw(g)
+    warm_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches, chunks = census_csr.launches, plan.stats["chunks"] - chunks0
+    check(launches == chunks > 0 and census_tiles.launches == 0
+          and plan.stats["host_syncs"] == 2,
+          f"amazon warm run: {launches} launches, {chunks} chunks, "
+          f"{plan.stats}")
+
+    split = device_split(torch, lambda: plan.run_raw(g))
+    emit("amazon_profile", **split, census_csr_ms=sum(
+        t["ms"] for t in split["top"] if "census_csr" in t["kernel"]))
+
+    torch.cuda.reset_peak_memory_stats()
+    splan = compile(g, ("triad_census",),
+                    EngineConfig(backend="search", device=dev))
+    t0 = time.perf_counter()
+    raw_search = splan.run_raw(g)
+    search_s = time.perf_counter() - t0
+    search_peak = torch.cuda.max_memory_allocated()
+    check(np.array_equal(raw_cold, raw_warm), "amazon cold != warm")
+    check(np.array_equal(raw_warm, raw_search),
+          f"amazon tiles {raw_warm.tolist()} != search "
+          f"{raw_search.tolist()}")
+    result = plan.layout.finalize(raw_warm, g)["triad_census"]
+    check(result.total == g.n * (g.n - 1) * (g.n - 2) // 6
+          and (result.counts >= 0).all(), "amazon census != C(n, 3)")
+    del splan
+
+    st = tiles_stream(plan, g)
+    ends = {}
+    for task in st.tasks:
+        ends.setdefault(task.key, []).append(task)
+    picked = [t for ts in ends.values() for t in dict.fromkeys((ts[0], ts[-1]))]
+    csr_kernel_phase(torch, g, st, picked, rates, "amazon")
+    emit("amazon", backend="tiles", cold_s=cold_s, warm_s=warm_s,
+         warm_dyads_per_s=g.n_dyads / warm_s, launches=launches,
+         chunks=chunks, host_syncs_per_run=1, max_memory_allocated=peak,
+         search_s=search_s, search_max_memory_allocated=search_peak,
+         bit_identical_to_search=True, checked_chunks=len(picked),
+         counts=result.counts.tolist())
+    del g, st, plan
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -479,8 +688,11 @@ def run(dev) -> int:
     from repro_torch.engine import EngineConfig, clear_plan_cache, compile
     from repro_torch.engine.backends import chunk_tile_inputs, tiles_stream
     from repro_torch.kernels import _build
-    from repro_torch.kernels.ref import census_tiles_ref
-    from repro_torch.kernels.triad_census import SENTINEL, census_tiles
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.ref import census_csr_ref, census_tiles_ref
+    from repro_torch.kernels.triad_census import (SENTINEL, census_csr,
+                                                  census_csr_stage_capacity,
+                                                  census_tiles)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -488,6 +700,15 @@ def run(dev) -> int:
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     kind = torch.cuda.get_device_name(0)
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # the card's peak rates for the census kernels' bounds
+    rates = dict(bytes=HBM_BYTES_PER_S,
+                 int32=sms * INT32_LANES_PER_SM * sm_mhz * 1e6)
+    emit("card", name=kind, sms=sms, sm_mhz_max=sm_mhz, **rates)
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 references stay f32
     torch.backends.cudnn.allow_tf32 = False
@@ -523,10 +744,11 @@ def run(dev) -> int:
     cfg = EngineConfig(backend="tiles", device=dev)
     plan = compile(g, ("triad_census",), cfg)
     st = tiles_stream(plan, g)
+    tile_arrays = plan.padded_arrays(g, with_in_csr=True)
     per_bucket: dict = {}
     max_err = 0
     for task in st.tasks:
-        u, v, tiles = chunk_tile_inputs(st.arrays, st.su, st.sv, task,
+        u, v, tiles = chunk_tile_inputs(tile_arrays, st.su, st.sv, task,
                                         st.chunk)
         got = census_tiles(u, v, g.n, *tiles, block=st.block)
         want = census_tiles_ref(*tiles, u, v, g.n, block=st.block)
@@ -562,6 +784,23 @@ def run(dev) -> int:
     check(bin012 == BIN012_LARGE_N,
           f"large-n case: bin 012 = {bin012}, want {BIN012_LARGE_N}")
     emit("kernel_large_n", n=n_big, bin012=bin012, equal=True)
+    del tile_arrays
+
+    # 2b. the CSR kernel against its plain version, every chunk -------------
+    csr_buckets = csr_kernel_phase(torch, g, st, st.tasks, rates, "slashdot")
+    capacity = census_csr_stage_capacity()
+    for extras in (False, True):
+        n_big, a_big, u, v = large_n_csr_case(torch, dev, extras)
+        got = census_csr(u, v, n_big, a_big, block=32)
+        want = census_csr_ref(u, v, n_big, a_big, block=32)
+        check(torch.equal(got, want),
+              f"large-n CSR case (extras={extras}): kernel != plain version")
+        bin012 = int(got.long().sum(0)[1])
+        check(extras or bin012 == BIN012_LARGE_N,
+              f"large-n CSR case: bin 012 = {bin012}, want {BIN012_LARGE_N}")
+        emit("csr_kernel_large_n", n=n_big, extras=extras, bin012=bin012,
+             equal=True)
+    del a_big
 
     # 3. small graphs against the brute-force census --------------------------
     n_small = 0
@@ -583,29 +822,31 @@ def run(dev) -> int:
     # 4. the main path at full width ------------------------------------------
     clear_plan_cache()
     torch.cuda.synchronize()
-    census_tiles.launches = 0
+    census_csr.launches = census_tiles.launches = 0
     t0 = time.perf_counter()
     plan = compile(g, ("triad_census",), cfg)
     raw_cold = plan.run_raw(g)
     cold_s = time.perf_counter() - t0
-    cold_launches = census_tiles.launches
-    check(cold_launches == plan.stats["chunks"] > 0,
-          f"cold run: {cold_launches} launches for "
-          f"{plan.stats['chunks']} chunks")
+    cold_launches = census_csr.launches
+    check(cold_launches == plan.stats["chunks"] > 0
+          and census_tiles.launches == 0,
+          f"cold run: {cold_launches} CSR launches for "
+          f"{plan.stats['chunks']} chunks, {census_tiles.launches} six-tile")
     check(plan.stats["host_syncs"] == 1, f"cold run: {plan.stats}")
 
     torch.cuda.reset_peak_memory_stats()
     chunks0 = plan.stats["chunks"]
-    census_tiles.launches = 0
+    census_csr.launches = census_tiles.launches = 0
     t0 = time.perf_counter()
     raw_warm = plan.run_raw(g)
     warm_s = time.perf_counter() - t0
-    launches = census_tiles.launches
+    launches = census_csr.launches
+    tile_launches = census_tiles.launches
     chunks = plan.stats["chunks"] - chunks0
     peak = torch.cuda.max_memory_allocated()
-    check(launches == chunks == len(st.tasks) > 0,
-          f"warm run: {launches} launches, {chunks} chunks, "
-          f"{len(st.tasks)} tasks")
+    check(launches == chunks == len(st.tasks) > 0 and tile_launches == 0,
+          f"warm run: {launches} CSR launches, {tile_launches} six-tile, "
+          f"{chunks} chunks, {len(st.tasks)} tasks")
     check(plan.stats["host_syncs"] == 2, f"warm run: {plan.stats}")
 
     splan = compile(g, ("triad_census",),
@@ -622,41 +863,64 @@ def run(dev) -> int:
           and (result.counts >= 0).all(), "census does not sum to C(n, 3)")
     emit("full", graph="slashdot", backend="tiles", cold_s=cold_s,
          warm_s=warm_s, warm_dyads_per_s=g.n_dyads / warm_s,
-         launches=launches, chunks=chunks, host_syncs_per_run=1,
-         tile_bytes_per_run=sum(24 * st.chunk * t.key for t in st.tasks),
-         max_memory_allocated=peak, search_s=search_s,
-         bit_identical_to_search=True, counts=result.counts.tolist())
+         launches=launches, six_tile_launches=tile_launches, chunks=chunks,
+         host_syncs_per_run=1,
+         candidate_lanes_per_run=sum(b["candidate_lanes"]
+                                     for b in csr_buckets.values()),
+         min_degree_sum_per_run=sum(b["min_degree_sum"]
+                                    for b in csr_buckets.values()),
+         compares_per_run=sum(b["compares"] for b in csr_buckets.values()),
+         stage_capacity=capacity, max_memory_allocated=peak,
+         search_s=search_s, bit_identical_to_search=True,
+         counts=result.counts.tolist())
 
-    # where the warm run's device time goes (kernels by name, idle share)
-    from torch.profiler import ProfilerActivity, profile
+    # where the warm run's time goes (kernels and host ops by name, idle
+    # share), and no tile gather on the way
+    gathers = []
+    gather_rows = kops._gather_rows
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        raw_prof = plan.run_raw(g)
-        prof_s = time.perf_counter() - t0
-    check(np.array_equal(raw_prof, raw_warm), "profiled run != warm run")
-    on_card = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                      for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
-                     reverse=True)
-    busy_ms = sum(ms for ms, _, _ in on_card)
-    emit("profile", wall_ms=prof_s * 1e3, device_busy_ms=busy_ms,
-         device_idle_share=1 - busy_ms / (prof_s * 1e3),
-         top=[dict(ms=ms, count=c, kernel=k[:100])
-              for ms, c, k in on_card[:12]])
+    def counted_gather(*args, **kwargs):
+        gathers.append(1)
+        return gather_rows(*args, **kwargs)
 
+    raws = []
+    kops._gather_rows = counted_gather  # the six-tile gather's row op
+    try:
+        split = device_split(torch, lambda: raws.append(plan.run_raw(g)))
+    finally:
+        kops._gather_rows = gather_rows
+    check(np.array_equal(raws[0], raw_warm), "profiled run != warm run")
+    check(not gathers, f"the main path gathered {len(gathers)} tile rows")
+    emit("profile", gather_rows_calls=len(gathers), **split)
+
+    csr_err = max(b["max_abs_err"] for b in csr_buckets.values())
+    csr_row = dict(
+        name="census_csr", route="cuda",
+        source="src/repro_torch/kernels/csrc/census_csr.cu",
+        replaces="src/repro/kernels/triad_census.py:36",
+        launches=launches, max_abs_err=csr_err,
+        ms=sum(b["kernel_ms"] for b in csr_buckets.values()),
+        plain_ms=sum(b["plain_ms"] for b in csr_buckets.values()),
+        bound_ms=sum(b["bound_ms"] for b in csr_buckets.values()),
+        bound_by=("operations" if sum(b["op_ms"] for b in csr_buckets.values())
+                  >= sum(b["byte_ms"] for b in csr_buckets.values())
+                  else "bytes"),
+        library_ms=None)
     census_row = dict(
         name="census_tiles", route="cuda",
         source="src/repro_torch/kernels/csrc/census_tiles.cu",
         replaces="src/repro/kernels/triad_census.py:36",
-        launches=launches, max_abs_err=max_err,
+        launches=tile_launches, main_path_launches=tile_launches,
+        checked_launches=len(st.tasks), max_abs_err=max_err,
         ms=sum(b["kernel_ms"] for b in per_bucket.values()),
         plain_ms=sum(b["plain_ms"] for b in per_bucket.values()),
         bound_ms=sum(b["bound_ms"] for b in per_bucket.values()),
         bound_by="bytes", library_ms=None)
     del g, st, plan, splan
     torch.cuda.empty_cache()
+
+    # 4b. the main path on Amazon at its published size ----------------------
+    amazon_phase(torch, dev, rates)
 
     # 5.-7. the flash kernel and the serving path -----------------------------
     flash = flash_kernel_phase(torch, dev)
@@ -673,7 +937,8 @@ def run(dev) -> int:
         ms=flash["ms"], plain_ms=flash["plain_ms"],
         bound_ms=flash["bound_ms"], bound_by=flash["bound_by"],
         library_ms=flash["library_ms"])
-    print(json.dumps({"kernels": [census_row, flash_row]}), flush=True)
+    print(json.dumps({"kernels": [csr_row, census_row, flash_row]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

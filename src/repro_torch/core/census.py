@@ -204,9 +204,10 @@ def sort_dyads_by_bucket(nbr_deg: torch.Tensor, out_ptr: torch.Tensor,
     b = torch.where(live, b, len(ks))
     by_need = torch.argsort(need, stable=True)
     order = by_need[torch.argsort(b[by_need], stable=True)]
-    counts = torch.zeros(len(ks) + 1, dtype=torch.int32, device=dev)
-    counts.index_add_(0, b, torch.ones_like(b, dtype=torch.int32))
-    return u[order], v[order], counts[: len(ks)]
+    # bucket edges in the sorted stream: no atomics on a handful of bins
+    edges = torch.searchsorted(b[order], torch.arange(len(ks) + 1,
+                                                      device=dev))
+    return u[order], v[order], (edges[1:] - edges[:-1]).int()
 
 
 def host_bucket_schedule(g: CSRGraph, ks: tuple, *, with_needs: bool = True
@@ -227,7 +228,12 @@ def host_bucket_schedule(g: CSRGraph, ks: tuple, *, with_needs: bool = True
     ks_arr = np.asarray(ks, dtype=np.int64)
     b = (need[:, None] > ks_arr[None, :]).sum(1)
     counts = np.bincount(b, minlength=len(ks))[: len(ks)].astype(np.int64)
-    return counts, need[np.lexsort((need, b))] if with_needs else None
+    if not with_needs:
+        return counts, None
+    # (bucket, need) order by a counting sort: needs are small integers
+    span = int(need.max(initial=0)) + 1
+    hist = np.bincount(b * span + need, minlength=(len(ks) + 1) * span)
+    return counts, np.repeat(np.arange(hist.size), hist) % span
 
 
 def brute_force_census(g: CSRGraph) -> CensusResult:

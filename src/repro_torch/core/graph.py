@@ -41,10 +41,12 @@ def next_pow2(x: int) -> int:
 
 
 class GraphArrays(NamedTuple):
-    """Graph arrays (all int32): torch tensors on a device, or numpy arrays
-    on the host.  ``in_ptr``/``in_idx`` hold the transpose (in-arc) CSR the
-    tile gather needs; only plans that use it build it
-    (:func:`repro_torch.kernels.ops.build_in_csr_device`)."""
+    """Graph arrays (int32 unless noted): torch tensors on a device, or
+    numpy arrays on the host.  ``in_ptr``/``in_idx`` hold the transpose
+    (in-arc) CSR the tile gather needs; ``nbr_flag`` (int8) and ``nbr_cnt``
+    the arc flags and range counts the CSR census kernel reads.  Only the
+    plans and checks that use them build them
+    (:mod:`repro_torch.kernels.ops`)."""
 
     out_ptr: "torch.Tensor | np.ndarray"  # (n+1,)
     out_idx: "torch.Tensor | np.ndarray"  # (m,) sorted within each row
@@ -53,6 +55,8 @@ class GraphArrays(NamedTuple):
     nbr_deg: "torch.Tensor | np.ndarray"  # (n,) open-neighbourhood sizes
     in_ptr: "Optional[torch.Tensor | np.ndarray]" = None
     in_idx: "Optional[torch.Tensor | np.ndarray]" = None
+    nbr_flag: "Optional[torch.Tensor | np.ndarray]" = None
+    nbr_cnt: "Optional[torch.Tensor | np.ndarray]" = None
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

@@ -21,7 +21,7 @@ from ..core.census import (canonical_dyads, enumerate_dyads_device,
                            host_bucket_schedule, sort_dyads_by_bucket)
 from ..core.graph import CSRGraph, GraphArrays
 from ..kernels.ops import TILE_NAMES, gather_tiles_device
-from ..kernels.triad_census import SENTINEL, census_tiles
+from ..kernels.triad_census import SENTINEL, census_csr
 from .executor import ChunkTask, _acc_fetch
 
 
@@ -93,29 +93,45 @@ def run_search(plan, g: CSRGraph) -> np.ndarray:
 
 
 # ----------------------------------------------------------------------------
-# tiles: degree-bucketed neighbourhood tiles through the CUDA census kernel
+# tiles: degree-bucketed dyads through the CUDA census kernel, which reads
+# the CSR rows directly (the six-tile gather is off this path)
 # ----------------------------------------------------------------------------
 
 
-def chunk_tile_inputs(arrays, su, sv, task, chunk: int):
-    """The census kernel's inputs for one tiles task: ``chunk`` dyads of
-    the bucket-sorted stream from ``task.start`` (lanes at or past
-    ``task.end`` become SENTINEL padding) and their six (chunk, K) tiles,
-    ``K = task.key``.  Returns ``(u, v, tiles)`` in kernel argument
-    order."""
-    pos = torch.arange(task.start, task.start + chunk, device=su.device)
+def chunk_dyads(su, sv, task, chunk: int):
+    """``chunk`` dyads of the bucket-sorted stream from ``task.start``;
+    lanes at or past ``task.end`` become SENTINEL padding.  Returns
+    ``(u, v, valid)``; ``valid`` is None for a full chunk, whose dyads
+    are views of the stream."""
+    stop = task.start + chunk
+    if stop <= task.end:
+        return su[task.start: stop], sv[task.start: stop], None
+    pos = torch.arange(task.start, stop, device=su.device)
     valid = pos < task.end
     pos.clamp_(max=su.shape[0] - 1)
     u, v = su[pos], sv[pos]
-    tiles = gather_tiles_device(arrays, u, v, valid, K=task.key)
     return (torch.where(valid, u, SENTINEL), torch.where(valid, v, SENTINEL),
-            [tiles[k] for k in TILE_NAMES])
+            valid)
+
+
+def chunk_tile_inputs(arrays, su, sv, task, chunk: int):
+    """The six-tile kernel's inputs for one tiles task: the task's dyads
+    (:func:`chunk_dyads`) and their six (chunk, K) tiles, ``K =
+    task.key``; ``arrays`` must carry the transpose CSR.  Returns ``(u, v,
+    tiles)`` in :func:`census_tiles` argument order.  Not on the main
+    path: the parity seam with the Pallas kernel's interface."""
+    u, v, valid = chunk_dyads(su, sv, task, chunk)
+    if valid is None:
+        valid = torch.ones(chunk, dtype=torch.bool, device=u.device)
+    tiles = gather_tiles_device(arrays, u, v, valid, K=task.key)
+    return u, v, [tiles[k] for k in TILE_NAMES]
 
 
 def make_tiles_chunk_fn(layout):
     """Chunk unit ``(arrays, n, su, sv, task, acc; chunk, block)`` of the
-    tiles backend: gather the task's tiles (:func:`chunk_tile_inputs`),
-    run the census tile kernel, and add its (chunk / block, 16) partials
+    tiles backend: run the CSR census kernel on the task's dyads
+    (:func:`chunk_dyads`), its warp or CTA mapping chosen by the task's
+    longest row ``task.width``, and add its (chunk / block, 16) partials
     into ``acc``."""
     if layout.keys != ["triad_census"]:
         raise ValueError(f"the tiles backend runs the triad census kernel "
@@ -124,8 +140,8 @@ def make_tiles_chunk_fn(layout):
 
     def tiles_chunk(arrays, n, su, sv, task, acc, *, chunk: int,
                     block: int):
-        u, v, tiles = chunk_tile_inputs(arrays, su, sv, task, chunk)
-        acc += census_tiles(u, v, n, *tiles, block=block).sum(
+        u, v, _ = chunk_dyads(su, sv, task, chunk)
+        acc += census_csr(u, v, n, arrays, block=block, k=task.width).sum(
             0, dtype=torch.int64)
 
     return tiles_chunk
@@ -134,17 +150,21 @@ def make_tiles_chunk_fn(layout):
 def _tiles_bucket_tasks(plan, g: CSRGraph, ks: tuple,
                         chunk: int) -> "list[ChunkTask]":
     """Per-bucket fixed-size chunks over the bucket-sorted dyad stream;
-    each task's key is its bucket's tile width ``K``."""
+    each task's key is its bucket's width ``K`` and its ``width`` the
+    longest row of its own dyads (which picks the census kernel's warp or
+    CTA mapping and sizes its stages)."""
 
     def build():
-        counts, _ = host_bucket_schedule(g, ks, with_needs=False)
+        counts, needs = host_bucket_schedule(g, ks)
         tasks: list = []
         offset = 0
         for K, c in zip(ks, counts.tolist()):
-            tasks += [ChunkTask(s, offset + c,
-                                float(K * min(chunk, offset + c - s)), K)
-                      for s in range(offset, offset + c, chunk)]
-            offset += c
+            end = offset + c
+            # needs ascend within a bucket: a span's last need is its widest
+            tasks += [ChunkTask(s, end, float(K * min(chunk, end - s)), K,
+                                int(needs[min(s + chunk, end) - 1]))
+                      for s in range(offset, end, chunk)]
+            offset = end
         return tasks
 
     return _memo_tasks(plan, g, ("tiles", ks, chunk), build)
@@ -152,8 +172,8 @@ def _tiles_bucket_tasks(plan, g: CSRGraph, ks: tuple,
 
 class TilesStream(NamedTuple):
     """Everything a tiles run dispatches over: the padded device arrays
-    (with the transpose CSR), the bucket-sorted dyad stream, the task
-    list, and the chunk and block sizes."""
+    (with the arc flags and range counts), the bucket-sorted dyad stream,
+    the task list, and the chunk and block sizes."""
 
     arrays: GraphArrays
     su: torch.Tensor
@@ -166,13 +186,13 @@ class TilesStream(NamedTuple):
 def tiles_stream(plan, g: CSRGraph) -> TilesStream:
     """Build the tiles backend's device stream for ``g`` (graph has
     dyads).  Bucket widths are the configured buckets capped at the plan's
-    tile width ``k``, which is always the top bucket."""
+    width ``k``, which is always the top bucket."""
     block = plan.config.resolve_block()
     chunk = max(block, (plan.chunk // block) * block)
     kmax = max(plan.meta.k, 1)
     ks = tuple(sorted({min(max(int(k), 1), kmax)
                        for k in plan.config.buckets} | {kmax}))
-    arrays = plan.padded_arrays(g, with_in_csr=True)
+    arrays = plan.padded_arrays(g, with_flags=True)
     du, dv = enumerate_dyads_device(arrays.nbr_ptr, arrays.nbr_idx, g.m_nbr,
                                     out_size=plan.dyad_pad)
     su, sv, _ = sort_dyads_by_bucket(arrays.nbr_deg, arrays.out_ptr, du, dv,

@@ -22,11 +22,12 @@ class EngineConfig:
     """Static execution policy for a census pass.
 
     Attributes:
-        backend: ``"tiles"`` (degree-bucketed neighbourhood tiles through
-            the hand-written CUDA census kernel; the counterpart of the
-            JAX ``"pallas"`` backend), ``"search"`` (the binary-search
-            batch program as torch ops; the counterpart of ``"xla"``), or
-            ``"auto"`` (resolves to ``"tiles"``).
+        backend: ``"tiles"`` (degree-bucketed dyads through the
+            hand-written CUDA census kernel, which reads the CSR rows
+            directly; the counterpart of the JAX ``"pallas"`` backend),
+            ``"search"`` (the binary-search batch program as torch ops;
+            the counterpart of ``"xla"``), or ``"auto"`` (resolves to
+            ``"tiles"``).
         device: torch device the plan runs on.  ``None`` means ``"cuda"``;
             pass ``"cpu"`` to run on the CPU (the tiles backend then runs
             the kernel's plain torch version).  Asking for CUDA on a
@@ -34,11 +35,11 @@ class EngineConfig:
             on its own.
         batch: chunk granularity: the streaming chunk is a whole number of
             batches, and ``block`` defaults to ``min(batch, 32)``.
-        block: tile-kernel block, the dyads per output row of partials.
+        block: census-kernel block, the dyads per output row of partials.
             ``None`` picks ``min(batch, 32)``.
-        k: tile width override (candidate lanes per dyad).  ``None``
-            derives a power-of-two bucket from the graph's max degree.
-        buckets: degree-bucket tile widths of the tiles backend (the
+        k: top bucket width override (>= the graph's max degree).
+            ``None`` derives a power-of-two bucket from the max degree.
+        buckets: degree-bucket widths of the tiles backend (the
             smallest bucket >= a dyad's degree need wins; the plan's ``k``
             is always the top bucket).  Non-empty, positive, strictly
             increasing.

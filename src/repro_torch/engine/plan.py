@@ -23,7 +23,8 @@ import torch
 
 from ..core.census import CensusResult
 from ..core.graph import CSRGraph, GraphArrays, next_pow2
-from ..kernels.ops import build_in_csr_device
+from ..kernels.ops import (MAX_FLAG_DEGREE, build_arc_flags_device,
+                           build_in_csr_device)
 from . import backends
 from .config import EngineConfig
 from .executor import Executor
@@ -110,12 +111,14 @@ class Plan:
                 f"graph (n={g.n}, m={g.m}, m_nbr={g.m_nbr}) exceeds plan "
                 f"buckets {m}; recompile via repro_torch.engine.compile")
 
-    def padded_arrays(self, g: CSRGraph, *,
-                      with_in_csr: bool = False) -> GraphArrays:
+    def padded_arrays(self, g: CSRGraph, *, with_in_csr: bool = False,
+                      with_flags: bool = False) -> GraphArrays:
         """The graph's tensors on the plan's device, padded to the metadata
         buckets.  Padded ptr rows repeat the last offset (empty rows) and
-        padded idx/deg entries are inert.  ``with_in_csr`` also builds the
-        transpose CSR on the device (the tiles backend's in-arc rows)."""
+        padded idx/deg entries are inert.  ``with_flags`` also builds the
+        arc flags and range counts on the device (what the tiles backend's
+        CSR census kernel reads); ``with_in_csr`` the transpose CSR (the
+        six-tile gather's in-arc rows)."""
         m, a, dev = self.meta, g.arrays, self.device
         arrays = GraphArrays(
             out_ptr=_pad_to(a.out_ptr.to(dev), m.n_bucket + 1, g.m),
@@ -127,6 +130,16 @@ class Plan:
             in_ptr, in_idx = build_in_csr_device(arrays.out_ptr,
                                                  arrays.out_idx)
             arrays = arrays._replace(in_ptr=in_ptr, in_idx=in_idx)
+        if with_flags:
+            if g.max_deg > MAX_FLAG_DEGREE:
+                raise ValueError(
+                    f"max degree {g.max_deg} > {MAX_FLAG_DEGREE}: the packed "
+                    "16-bit range counts of the CSR census kernel cannot "
+                    "hold it (use backend='search')")
+            flags, counts = build_arc_flags_device(
+                arrays.out_ptr, arrays.out_idx, arrays.nbr_ptr,
+                arrays.nbr_idx)
+            arrays = arrays._replace(nbr_flag=flags, nbr_cnt=counts)
         return arrays
 
     def run(self, g: CSRGraph) -> dict:

@@ -4,12 +4,16 @@
   kernel (:mod:`repro_torch.kernels.flash_attention`; ``repro``'s
   ``ops.flash_attention`` without its ``chunk`` and ``interpret``: the
   CUDA kernel has its own tile, and a CPU tensor runs the plain version).
+* The arc flags and range counts the CSR census kernel reads
+  (:func:`build_arc_flags_device`, host twin :func:`build_arc_flags`).
 * Tile construction for the census tile kernel: the transpose CSR and the
   six SENTINEL-padded neighbourhood tiles of a dyad chunk, as torch ops
   (device) and numpy (host).  Every tile row comes out sorted ascending
   with a SENTINEL tail and no duplicates: CSR columns are sorted and the
   transpose is built by a stable sort.  The CUDA kernel relies on that to
-  find a row's length and probe it by binary search.
+  find a row's length and probe it by binary search.  The main path no
+  longer builds tiles: they are the six-tile kernel's interface, kept as
+  the counterpart of the Pallas kernel's.
 """
 from __future__ import annotations
 
@@ -21,6 +25,96 @@ from .flash_attention import flash_attention  # noqa: F401
 from .triad_census import SENTINEL
 
 TILE_NAMES = ("out_u", "in_u", "out_v", "in_v", "nbr_u", "nbr_v")
+#: rows of the packed range counts hold two 16-bit fields
+MAX_FLAG_DEGREE = 2**16 - 1
+
+
+def _flag_length(m: int) -> int:
+    """Flags are padded to whole 16-byte chunks, so the CSR kernel can
+    copy any row's covering span 16 bytes at a time."""
+    return max(16, -(-m // 16) * 16)
+
+
+def build_arc_flags(out_ptr, out_idx, nbr_ptr, nbr_idx):
+    """Host twin of :func:`build_arc_flags_device` on padded numpy arrays."""
+    n = len(nbr_ptr) - 1
+    M = len(nbr_idx)
+    pos = np.arange(M)
+    live = pos < nbr_ptr[-1]
+    rows = np.searchsorted(nbr_ptr, pos, side="right") - 1
+    w = np.asarray(nbr_idx, np.int64)
+    out_rows = np.repeat(np.arange(n, dtype=np.int64),
+                         np.diff(out_ptr)[:n])
+    arcs = set(zip(out_rows.tolist(),
+                   np.asarray(out_idx[: out_ptr[-1]], np.int64).tolist()))
+    flags = np.zeros(_flag_length(M), np.int8)
+    counts = np.zeros(M, np.int64)
+    for p in np.flatnonzero(live):
+        x, y = int(rows[p]), int(w[p])
+        flags[p] = ((x, y) in arcs) + 2 * ((y, x) in arcs)
+    for x in range(n):
+        run = np.zeros(2, np.int64)
+        for p in range(nbr_ptr[x], nbr_ptr[x + 1]):
+            if flags[p] in (1, 2):
+                run[flags[p] - 1] += 1
+            counts[p] = run[0] + (run[1] << 16)
+    return flags, _to_int32_bits(counts)
+
+
+def _to_int32_bits(x):
+    """int64 values in [0, 2**32) to int32 holding the same 32 bits."""
+    if isinstance(x, np.ndarray):
+        return np.where(x >= 2**31, x - 2**32, x).astype(np.int32)
+    return torch.where(x >= 2**31, x - 2**32, x).int()
+
+
+def build_arc_flags_device(out_ptr: torch.Tensor, out_idx: torch.Tensor,
+                           nbr_ptr: torch.Tensor, nbr_idx: torch.Tensor):
+    """Direction flags and per-row range counts of the undirected CSR.
+
+    For the arc at position ``p`` of row ``x`` of ``nbr`` (``w =
+    nbr_idx[p]``), ``flags[p] = [x -> w] + 2 [w -> x]`` (int8, 1..3 for a
+    real arc).  ``counts[p]`` packs how many of the row's positions up to
+    and including ``p`` have flag 1 (low 16 bits) and flag 2 (high 16
+    bits), so the counts over positions ``(a, b]`` of one row are
+    ``counts[b] - counts[a]`` in 32-bit unsigned arithmetic.  That needs
+    every degree below 2**16 (the caller checks, :data:`MAX_FLAG_DEGREE`).
+
+    Inputs are the bucket-padded CSRs (padded ptr rows repeat the last
+    offset); padding arcs get flag 0 and count 0.  ``flags`` is padded
+    with zeros to a whole number of 16-byte chunks.  Each flag comes from
+    two ``searchsorted`` of 64-bit keys ``x * n + w`` into the sorted
+    out-arc keys.
+    """
+    dev = nbr_idx.device
+    n = nbr_ptr.shape[0] - 1
+    M = nbr_idx.shape[0]
+    big = torch.iinfo(torch.int64).max
+
+    def row_of(ptr, length):
+        pos = torch.arange(length, dtype=torch.int32, device=dev)
+        rows = torch.searchsorted(ptr, pos, right=True).long() - 1
+        return rows, pos < ptr[-1]
+
+    o_rows, o_live = row_of(out_ptr, out_idx.shape[0])
+    out_keys = torch.where(o_live, o_rows * n + out_idx.long(), big)
+    rows, live = row_of(nbr_ptr, M)
+    w = nbr_idx.long()
+
+    def is_arc(src, dst):
+        key = torch.where(live, src * n + dst, big - 1)
+        at = torch.searchsorted(out_keys, key).clamp_(max=out_keys.shape[0] - 1)
+        return live & (out_keys[at] == key)
+
+    dir_ = is_arc(rows, w).to(torch.int8) + 2 * is_arc(w, rows).to(torch.int8)
+    flags = torch.zeros(_flag_length(M), dtype=torch.int8, device=dev)
+    flags[:M] = dir_
+    packed = (dir_ == 1).long() + ((dir_ == 2).long() << 16)
+    run = torch.cumsum(packed, 0)
+    start = nbr_ptr[rows.clamp(max=n - 1)].long()
+    before = (run - packed)[start.clamp(max=M - 1)]
+    counts = torch.where(live, run - before, 0)
+    return flags, _to_int32_bits(counts)
 
 
 def _pad_rows(ptr, idx, rows, K):

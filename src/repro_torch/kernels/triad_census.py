@@ -1,10 +1,15 @@
-"""The triad-census tile kernel: wrapper around the hand-written CUDA kernel
-(``csrc/census_tiles.cu``) with its plain torch version beside it.
+"""The triad-census kernels: wrappers around the hand-written CUDA kernels
+with their plain torch versions beside them.
 
-Counterpart of :mod:`repro.kernels.triad_census` (the Pallas TPU kernel).
+Counterparts of :mod:`repro.kernels.triad_census` (the Pallas TPU kernel):
+
+* :func:`census_csr` (``csrc/census_csr.cu``) reads the CSR rows of each
+  dyad directly and is the census main path's kernel;
+* :func:`census_tiles` (``csrc/census_tiles.cu``) takes the Pallas
+  kernel's own six-tile interface: the parity seam, off the main path.
+
 A CUDA tensor launches the CUDA kernel or raises; a CPU tensor runs the
-plain version (:func:`repro_torch.kernels.ref.census_tiles_ref`).  There
-is no other path.
+plain version (:mod:`repro_torch.kernels.ref`).  There is no other path.
 """
 from __future__ import annotations
 
@@ -14,7 +19,7 @@ import functools
 import torch
 
 from . import _build
-from .ref import census_tiles_ref
+from .ref import census_csr_ref, census_tiles_ref
 
 SENTINEL = 2**30
 
@@ -31,9 +36,16 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(u, v, n, tiles, block):
+def _check_block(n, block):
     if block < 1:
         raise ValueError(f"block must be >= 1, got {block}")
+    if not 0 <= block * n < 2**30:
+        raise ValueError(f"block * n = {block * n} must stay below 2**30 so "
+                         "each int32 partial row is exact")
+
+
+def _check(u, v, n, tiles, block):
+    _check_block(n, block)
     if tiles[0].dim() != 2:
         raise ValueError(f"tiles must be (D, K), got {tuple(tiles[0].shape)}")
     D = tiles[0].shape[0]
@@ -52,9 +64,6 @@ def _check(u, v, n, tiles, block):
                          f"{tuple(v.shape)}")
     if D % block:
         raise ValueError(f"D={D} is not a multiple of block={block}")
-    if not 0 <= block * n < 2**30:
-        raise ValueError(f"block * n = {block * n} must stay below 2**30 so "
-                         "each int32 partial row is exact")
 
 
 def census_tiles(u, v, n: int, out_u, in_u, out_v, in_v, nbr_u, nbr_v, *,
@@ -93,3 +102,102 @@ def census_tiles(u, v, n: int, out_u, in_u, out_v, in_v, nbr_u, nbr_v, *,
 
 
 census_tiles.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _csr_lib() -> ctypes.CDLL:
+    lib = _build.load("census_csr")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.census_csr_launch.argtypes = [p, p, ll, p, p, p, p, i, i, i, i, p, p]
+    lib.census_csr_launch.restype = i
+    lib.census_csr_stage_capacity.argtypes = []
+    lib.census_csr_stage_capacity.restype = i
+    lib.census_csr_error_string.argtypes = [i]
+    lib.census_csr_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def census_csr_stage_capacity() -> int:
+    """Longest row the CSR kernel stages in shared memory on the current
+    CUDA device; longer rows are searched in device memory."""
+    return _csr_lib().census_csr_stage_capacity()
+
+
+def _check_csr(u, v, n, arrays, block):
+    _check_block(n, block)
+    if arrays.nbr_flag is None or arrays.nbr_cnt is None:
+        raise ValueError("arrays must carry nbr_flag and nbr_cnt "
+                         "(Plan.padded_arrays(g, with_flags=True))")
+    want = dict(u=(u, torch.int32), v=(v, torch.int32),
+                nbr_ptr=(arrays.nbr_ptr, torch.int32),
+                nbr_idx=(arrays.nbr_idx, torch.int32),
+                nbr_flag=(arrays.nbr_flag, torch.int8),
+                nbr_cnt=(arrays.nbr_cnt, torch.int32))
+    for name, (t, dtype) in want.items():
+        if t.dim() != 1 or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 1-D {dtype} "
+                             f"tensor, got {t.dtype} {tuple(t.shape)} "
+                             f"(contiguous={t.is_contiguous()})")
+        if t.device != u.device:
+            raise ValueError(f"all inputs must be on {u.device}, "
+                             f"{name} is on {t.device}")
+    M = arrays.nbr_idx.shape[0]
+    if arrays.nbr_cnt.shape[0] != M:
+        raise ValueError(f"nbr_cnt must have nbr_idx's length {M}, got "
+                         f"{arrays.nbr_cnt.shape[0]}")
+    F = arrays.nbr_flag.shape[0]
+    if F < M or F % 16:
+        raise ValueError(f"nbr_flag must cover nbr_idx ({M}) in whole "
+                         f"16-byte chunks, got length {F}")
+    D = u.shape[0]
+    if v.shape != (D,):
+        raise ValueError(f"u and v must be ({D},), got {tuple(u.shape)} and "
+                         f"{tuple(v.shape)}")
+    if D % block:
+        raise ValueError(f"D={D} is not a multiple of block={block}")
+
+
+def census_csr(u, v, n: int, arrays, *, block: int = 32,
+               k: "int | None" = None) -> torch.Tensor:
+    """Census of dyadic + connected triads read straight from the CSR.
+
+    ``u``, ``v``: (D,) int32 canonical dyads, ``u == SENTINEL`` marking a
+    padded dyad; ``arrays``: the graph's
+    :class:`~repro_torch.core.graph.GraphArrays` with the arc flags and
+    range counts (``Plan.padded_arrays(g, with_flags=True)``).  ``k``
+    bounds the longest row of the dyads, ``max(deg u, deg v)``: up to 128
+    the kernel maps one warp to a dyad, above it one CTA, with
+    shared-memory stages sized to ``k``; ``None`` sizes them at full
+    capacity.  Any row length gives the right result.  Returns the
+    (D / block, 16) int32 partials :func:`census_tiles` gives for the same
+    dyads.  ``census_csr.launches`` counts CUDA kernel launches.
+    """
+    _check_csr(u, v, n, arrays, block)
+    dev = u.device
+    if dev.type == "cpu":
+        return census_csr_ref(u, v, n, arrays, block=block)
+    if dev.type != "cuda":
+        raise ValueError(f"census_csr runs on cuda or cpu, not {dev}")
+    for name in ("nbr_idx", "nbr_flag"):
+        if getattr(arrays, name).data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+    D = u.shape[0]
+    out = torch.empty((D // block, 16), dtype=torch.int32, device=dev)
+    if D == 0:
+        return out
+    lib = _csr_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.census_csr_launch(
+            u.data_ptr(), v.data_ptr(), n, arrays.nbr_ptr.data_ptr(),
+            arrays.nbr_idx.data_ptr(), arrays.nbr_flag.data_ptr(),
+            arrays.nbr_cnt.data_ptr(), arrays.nbr_idx.shape[0], D, block,
+            0 if k is None else int(k), out.data_ptr(), stream)
+    if err:
+        raise RuntimeError("census_csr launch failed: "
+                           + lib.census_csr_error_string(err).decode())
+    census_csr.launches += 1
+    return out
+
+
+census_csr.launches = 0

@@ -45,7 +45,7 @@ def test_digest_ignores_other_sources(csrc):
 
 
 def test_shipped_kernels_have_distinct_digests():
-    names = ("census_tiles", "flash_attention")
+    names = ("census_csr", "census_tiles", "flash_attention")
     digests = {_build.source_digest(n) for n in names}
     assert len(digests) == len(names)
     assert all(len(d) == 16 for d in digests)
