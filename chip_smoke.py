@@ -21,7 +21,8 @@ script exits non-zero and prints no result.  Phases:
    csr_kernel — the same chunks through the CSR kernel (the main path's
              kernel) against ``census_csr_ref``, bit-equal, timed, with
              each chunk's bytes and compares bound; the large-n case as a
-             graph through the CSR kernel.
+             graph through the CSR kernel; a hub of degree 70,000, whose
+             range counts take the wide layout, through both mappings.
 3. small   — ``compile(...).run(g)`` on R-MAT graphs of 64-256 vertices,
              both backends and several bucket sets, against the port's
              brute-force census.
@@ -75,6 +76,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak memory rate
 BF16_FLOP_PER_S = 989e12  # H100 SXM published dense bf16 tensor-core peak
 BIN012_LARGE_N = 134217760  # exact bin 012 of the large-n tile case
+HUB_DEGREE = 70_000  # past the packed range counts' 2**16 - 1
 INT32_LANES_PER_SM = 64  # Hopper: int32 results per SM per clock
 KERNELS = ("census_csr", "census_tiles", "flash_attention")
 T0 = time.perf_counter()
@@ -180,6 +182,37 @@ def large_n_csr_case(torch, device, extras):
             torch.as_tensor(dv, device=device))
 
 
+def wide_hub_case(torch, device):
+    """A hub (vertex 0) with HUB_DEGREE neighbours, 96 % of them out-arcs,
+    so past what the packed range counts hold, plus a random digraph of
+    4 n arcs among the rest: the plan builds the wide counts.  Returns
+    ``(n, arrays with flags, u, v)``: 256 hub dyads and 256 others."""
+    import numpy as np
+
+    from repro_torch.core import census as tcensus
+    from repro_torch.core.graph import from_edges
+    from repro_torch.engine import EngineConfig, compile
+
+    n = HUB_DEGREE + 10_000
+    rng = np.random.default_rng(0)
+    leaves = rng.choice(np.arange(1, n), size=HUB_DEGREE, replace=False)
+    kind = rng.choice(3, size=HUB_DEGREE, p=(0.96, 0.02, 0.02))
+    src = np.concatenate([np.zeros(int((kind != 1).sum()), np.int64),
+                          leaves[kind != 0], rng.integers(1, n, 4 * n)])
+    dst = np.concatenate([leaves[kind != 1],
+                          np.zeros(int((kind != 0).sum()), np.int64),
+                          rng.integers(1, n, 4 * n)])
+    g = from_edges(n, src, dst, device=device)
+    a = compile(g, ("triad_census",), EngineConfig(
+        backend="tiles", device=device)).padded_arrays(g, with_flags=True)
+    check(a.nbr_cnt.dim() == 2, "wide hub case: counts are not wide")
+    u, v = tcensus.canonical_dyads(g)
+    pick = np.concatenate([np.flatnonzero(u == 0)[:256],
+                           np.flatnonzero(u != 0)[:256]])
+    return (n, a, torch.as_tensor(u[pick], device=device),
+            torch.as_tensor(v[pick], device=device))
+
+
 def csr_chunk_work(torch, arrays, u, v, block):
     """What one CSR-kernel launch must do for these dyads: (bytes,
     compares, candidate lanes, sum of min degrees).  Bytes: every distinct
@@ -214,14 +247,14 @@ def csr_kernel_phase(torch, g, st, tasks, rates, label):
     per_bucket: dict = {}
     for task in tasks:
         u, v, _ = chunk_dyads(st.su, st.sv, task, st.chunk)
-        got = census_csr(u, v, g.n, st.arrays, block=st.block, k=task.width)
+        got = census_csr(u, v, g.n, st.arrays, k=task.key, block=st.block)
         want = census_csr_ref(u, v, g.n, st.arrays, block=st.block)
         torch.cuda.synchronize()
         err = int((got.long() - want.long()).abs().max())
         check(err == 0, f"{label}: census_csr != plain at K={task.key}, "
                         f"dyad {task.start}: max abs err {err}")
         k_ms = event_ms(torch, lambda: census_csr(
-            u, v, g.n, st.arrays, block=st.block, k=task.width), reps=3)
+            u, v, g.n, st.arrays, k=task.key, block=st.block), reps=3)
         p_ms = event_ms(torch, lambda: census_csr_ref(
             u, v, g.n, st.arrays, block=st.block), reps=1)
         nbytes, compares, lanes, min_sum = csr_chunk_work(
@@ -691,7 +724,6 @@ def run(dev) -> int:
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.ref import census_csr_ref, census_tiles_ref
     from repro_torch.kernels.triad_census import (SENTINEL, census_csr,
-                                                  census_csr_stage_capacity,
                                                   census_tiles)
 
     smi = subprocess.run(
@@ -788,10 +820,9 @@ def run(dev) -> int:
 
     # 2b. the CSR kernel against its plain version, every chunk -------------
     csr_buckets = csr_kernel_phase(torch, g, st, st.tasks, rates, "slashdot")
-    capacity = census_csr_stage_capacity()
     for extras in (False, True):
         n_big, a_big, u, v = large_n_csr_case(torch, dev, extras)
-        got = census_csr(u, v, n_big, a_big, block=32)
+        got = census_csr(u, v, n_big, a_big, k=2, block=32)
         want = census_csr_ref(u, v, n_big, a_big, block=32)
         check(torch.equal(got, want),
               f"large-n CSR case (extras={extras}): kernel != plain version")
@@ -800,6 +831,15 @@ def run(dev) -> int:
               f"large-n CSR case: bin 012 = {bin012}, want {BIN012_LARGE_N}")
         emit("csr_kernel_large_n", n=n_big, extras=extras, bin012=bin012,
              equal=True)
+    n_hub, a_hub, u, v = wide_hub_case(torch, dev)
+    for k in (512, n_hub):  # both mappings
+        got = census_csr(u, v, n_hub, a_hub, k=k, block=32)
+        want = census_csr_ref(u, v, n_hub, a_hub, block=32)
+        check(torch.equal(got, want),
+              f"wide hub case, k={k}: kernel != plain version")
+    emit("csr_kernel_wide_hub", n=n_hub, hub_degree=HUB_DEGREE,
+         counts_shape=list(a_hub.nbr_cnt.shape), dyads=u.shape[0],
+         equal=True)
     del a_big
 
     # 3. small graphs against the brute-force census --------------------------
@@ -870,7 +910,7 @@ def run(dev) -> int:
          min_degree_sum_per_run=sum(b["min_degree_sum"]
                                     for b in csr_buckets.values()),
          compares_per_run=sum(b["compares"] for b in csr_buckets.values()),
-         stage_capacity=capacity, max_memory_allocated=peak,
+         max_memory_allocated=peak,
          search_s=search_s, bit_identical_to_search=True,
          counts=result.counts.tolist())
 

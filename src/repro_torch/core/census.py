@@ -228,12 +228,7 @@ def host_bucket_schedule(g: CSRGraph, ks: tuple, *, with_needs: bool = True
     ks_arr = np.asarray(ks, dtype=np.int64)
     b = (need[:, None] > ks_arr[None, :]).sum(1)
     counts = np.bincount(b, minlength=len(ks))[: len(ks)].astype(np.int64)
-    if not with_needs:
-        return counts, None
-    # (bucket, need) order by a counting sort: needs are small integers
-    span = int(need.max(initial=0)) + 1
-    hist = np.bincount(b * span + need, minlength=(len(ks) + 1) * span)
-    return counts, np.repeat(np.arange(hist.size), hist) % span
+    return counts, need[np.lexsort((need, b))] if with_needs else None
 
 
 def brute_force_census(g: CSRGraph) -> CensusResult:

@@ -130,9 +130,9 @@ def chunk_tile_inputs(arrays, su, sv, task, chunk: int):
 def make_tiles_chunk_fn(layout):
     """Chunk unit ``(arrays, n, su, sv, task, acc; chunk, block)`` of the
     tiles backend: run the CSR census kernel on the task's dyads
-    (:func:`chunk_dyads`), its warp or CTA mapping chosen by the task's
-    longest row ``task.width``, and add its (chunk / block, 16) partials
-    into ``acc``."""
+    (:func:`chunk_dyads`), its warp or CTA mapping chosen by the bucket
+    width ``task.key``, and add its (chunk / block, 16) partials into
+    ``acc``."""
     if layout.keys != ["triad_census"]:
         raise ValueError(f"the tiles backend runs the triad census kernel "
                          f"only; got kernels {layout.keys} (use "
@@ -141,7 +141,7 @@ def make_tiles_chunk_fn(layout):
     def tiles_chunk(arrays, n, su, sv, task, acc, *, chunk: int,
                     block: int):
         u, v, _ = chunk_dyads(su, sv, task, chunk)
-        acc += census_csr(u, v, n, arrays, block=block, k=task.width).sum(
+        acc += census_csr(u, v, n, arrays, k=task.key, block=block).sum(
             0, dtype=torch.int64)
 
     return tiles_chunk
@@ -150,21 +150,18 @@ def make_tiles_chunk_fn(layout):
 def _tiles_bucket_tasks(plan, g: CSRGraph, ks: tuple,
                         chunk: int) -> "list[ChunkTask]":
     """Per-bucket fixed-size chunks over the bucket-sorted dyad stream;
-    each task's key is its bucket's width ``K`` and its ``width`` the
-    longest row of its own dyads (which picks the census kernel's warp or
-    CTA mapping and sizes its stages)."""
+    each task's key is its bucket's width ``K``, which bounds every row
+    of its dyads."""
 
     def build():
-        counts, needs = host_bucket_schedule(g, ks)
+        counts, _ = host_bucket_schedule(g, ks, with_needs=False)
         tasks: list = []
         offset = 0
         for K, c in zip(ks, counts.tolist()):
-            end = offset + c
-            # needs ascend within a bucket: a span's last need is its widest
-            tasks += [ChunkTask(s, end, float(K * min(chunk, end - s)), K,
-                                int(needs[min(s + chunk, end) - 1]))
-                      for s in range(offset, end, chunk)]
-            offset = end
+            tasks += [ChunkTask(s, offset + c,
+                                float(K * min(chunk, offset + c - s)), K)
+                      for s in range(offset, offset + c, chunk)]
+            offset += c
         return tasks
 
     return _memo_tasks(plan, g, ("tiles", ks, chunk), build)

@@ -23,16 +23,13 @@ import torch
 
 class ChunkTask(NamedTuple):
     """One span ``[start, end)`` of the dyad stream, its predicted work,
-    a static per-task key (the bucket width ``K`` on the tiles backend, the
-    ragged candidate count on the search backend) and, on the tiles
-    backend, ``width``: the longest row of the span's dyads,
-    ``max(deg u, deg v)``, which sizes the census kernel's stages."""
+    and a static per-task key: the bucket width ``K`` on the tiles
+    backend, the ragged candidate count on the search backend."""
 
     start: int
     end: int
     cost: float = 0.0
     key: Optional[int] = None
-    width: Optional[int] = None
 
 
 def _acc_fetch(plan, acc: torch.Tensor) -> np.ndarray:

@@ -23,7 +23,7 @@ import torch
 
 from ..core.census import CensusResult
 from ..core.graph import CSRGraph, GraphArrays, next_pow2
-from ..kernels.ops import (MAX_FLAG_DEGREE, build_arc_flags_device,
+from ..kernels.ops import (MAX_PACKED_DEGREE, build_arc_flags_device,
                            build_in_csr_device)
 from . import backends
 from .config import EngineConfig
@@ -117,7 +117,8 @@ class Plan:
         buckets.  Padded ptr rows repeat the last offset (empty rows) and
         padded idx/deg entries are inert.  ``with_flags`` also builds the
         arc flags and range counts on the device (what the tiles backend's
-        CSR census kernel reads); ``with_in_csr`` the transpose CSR (the
+        CSR census kernel reads; the counts are packed while the graph's
+        max degree allows, else wide); ``with_in_csr`` the transpose CSR (the
         six-tile gather's in-arc rows)."""
         m, a, dev = self.meta, g.arrays, self.device
         arrays = GraphArrays(
@@ -131,14 +132,9 @@ class Plan:
                                                  arrays.out_idx)
             arrays = arrays._replace(in_ptr=in_ptr, in_idx=in_idx)
         if with_flags:
-            if g.max_deg > MAX_FLAG_DEGREE:
-                raise ValueError(
-                    f"max degree {g.max_deg} > {MAX_FLAG_DEGREE}: the packed "
-                    "16-bit range counts of the CSR census kernel cannot "
-                    "hold it (use backend='search')")
             flags, counts = build_arc_flags_device(
                 arrays.out_ptr, arrays.out_idx, arrays.nbr_ptr,
-                arrays.nbr_idx)
+                arrays.nbr_idx, wide=g.max_deg > MAX_PACKED_DEGREE)
             arrays = arrays._replace(nbr_flag=flags, nbr_cnt=counts)
         return arrays
 

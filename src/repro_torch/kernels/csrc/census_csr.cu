@@ -13,8 +13,9 @@
 // (kernels/ops.py::build_arc_flags_device):
 //   flags[p]  = [x -> w] + 2 [w -> x]                    (int8, 1..3)
 //   counts[p] = (#flag 1, #flag 2) over the row's positions <= p, packed
-//               as two 16-bit fields, so a count over a row range is two
-//               reads.
+//               as two 16-bit fields while every degree is below 2^16,
+//               else two int32 arrays (counts[p], counts[m + p]); either
+//               way a count over a row range is two reads per flag value.
 // What it computes per dyad, with code0 = flag of v in N(u):
 //   * |S| = deg u + deg v - 2 - |N(u) ∩ N(v)|;
 //   * from N(u), every w > v with code code0 + 4 dir(u,w) (+ 16 dir(v,w)
@@ -32,24 +33,18 @@
 // intersection is min(deg u, deg v) searches of ceil(log2(max + 1)) integer
 // compares each, ~3.6e8 per Slashdot run (chip_smoke.py computes both from
 // each chunk's own rows and degrees).  What costs is the latency of those
-// dependent search steps, so the design keeps them out of device memory:
-//   * rows up to 512 entries (the three small buckets): one warp per dyad,
-//     up to 32 dyads in flight per CTA; the warp copies the dyad's larger
-//     row (indices and flags) into its own shared-memory stage, then lanes
-//     take elements of the smaller row (coalesced reads) and
-//     binary-search them in the stage;
-//   * larger rows: one CTA of 1024 threads walks its `block` dyads in
-//     runs that share the larger row -- the bucket sort puts a hub's dyads
-//     next to each other -- and the row is copied once per run; runs whose
-//     rows fit in a stage together form a batch.  A batch's rows are
-//     staged in dynamic shared memory by cp.async over the 16-byte-aligned
-//     spans that cover them, in two stages (as large as two CTAs per SM
-//     allow): the next batch streams in while this one is searched.  The
-//     CTA's threads share out all the batch's smaller-row elements as one
-//     flattened list, so one barrier serves many light dyads and a hub
-//     with many light neighbours keeps every thread busy;
-//   * a row longer than a stage (~22.4 k entries at the 227 KB limit) is
-//     searched in device memory by the same code: same result, any degree;
+// dependent search steps.  The CSR, flags and counts (16 MB at Slashdot
+// size, 70 MB at Amazon's) sit in the 50 MB L2 or close to it, and each
+// search runs where the row lies: copying the larger row into shared memory
+// first measured no faster on the card (PERF.md).  The design spreads the
+// searches so that every thread has one:
+//   * buckets up to 512 entries: one warp per dyad, up to 32 dyads in
+//     flight per CTA; lanes take elements of the smaller row (coalesced
+//     reads) and binary-search them in the larger row;
+//   * larger buckets: one CTA of 1024 threads takes up to 64 of its dyads
+//     at a time and shares out all their smaller-row elements as one
+//     flattened list, so a hub with many light neighbours keeps every
+//     thread busy and one barrier serves many light dyads;
 //   * per dyad the two range positions, |N(u) ∩ N(v)| and the twelve
 //     correction counters sit in shared memory; one epilogue per 64 dyads
 //     turns them into the CTA's 16-bin histogram (shared atomics) and each
@@ -58,28 +53,22 @@
 
 #include <cuda_runtime.h>
 
-#include <algorithm>
 #include <cstdint>
 
 namespace {
 
 constexpr int kSentinel = 1 << 30;
 constexpr int kGroup = 64;          // dyads whose records sit in shared memory
-constexpr int kWarpMaxWidth = 512;  // rows up to this length: warp per dyad
+constexpr int kWarpMaxWidth = 512;  // buckets up to this width: warp per dyad
 constexpr int kCtaThreads = 1024;
 
-// per-dyad metadata, kMeta ints; the CTA kernel's: kLoad (the dyad's run
-// copies its row), kOffI / kOffF (the row's place in its batch's stage, in
-// ints and bytes; kOffI = -1: searched in device memory), kPre (the
-// dyad's first element in its batch's flattened element list)
-enum { kU, kV, kPu, kDu, kPv, kDv, kLoad, kOffI, kOffF, kPre, kMeta };
+// per-dyad metadata, kMeta ints; kPre (CTA kernel): the dyad's first
+// element in the group's flattened element list
+enum { kU, kV, kPu, kDu, kPv, kDv, kPre, kMeta };
 // per-dyad record, kRec ints: |N(u) ∩ N(v)|, position of v in N(u), of u
 // in N(v), intersection elements w > v by (dir(u,w), dir(v,w)) (3 x 3),
 // elements u < w < v by dir(v,w) (3)
-enum { kIsz, kPosV, kPosU, kHigh, kMid = kHigh + 9, kRec = kMid + 4 };
-// metadata and records, plus the CTA kernel's batches (start, end,
-// elements)
-constexpr int kGroupBytes = kGroup * (kMeta + kRec) * 4 + 3 * kGroup * 4;
+enum { kIsz, kPosV, kPosU, kHigh, kMid = kHigh + 9, kRec = kMid + 3 };
 
 // TRIAD_TABLE_64 of src/repro_torch/core/triad_table.py: 6-bit triad code
 // -> MAN type index (0 = "003" .. 15 = "300").
@@ -89,40 +78,12 @@ __constant__ int c_triad_table[64] = {
     1, 4, 5, 6, 5, 8, 9, 13, 3, 8, 8, 11, 7, 12, 13, 14,
     2, 6, 7, 10, 6, 11, 13, 14, 7, 13, 12, 14, 10, 14, 14, 15};
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until every committed group has landed.
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// First index of row[0, len) whose value is >= x; `row` may point to shared
-// or device memory.
+// First index of row[0, len) whose value is >= x.
 __device__ __forceinline__ int lower_bound(const int* row, int len, int x) {
   int lo = 0, hi = len;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
-    if (row[mid] < x) {
+    if (__ldg(row + mid) < x) {
       lo = mid + 1;
     } else {
       hi = mid;
@@ -131,18 +92,13 @@ __device__ __forceinline__ int lower_bound(const int* row, int len, int x) {
   return lo;
 }
 
-// A larger row: its indices and flags, in shared or device memory.
-struct Row {
-  const int* idx;
-  const signed char* flag;
-};
-
 struct Csr {
   const int* ptr;
   const int* idx;
   const signed char* flags;
   const int* counts;
-  int m;  // length of idx
+  int m;     // length of idx
+  int wide;  // counts: two int32 arrays of m (1) or packed 16 + 16 bits (0)
 };
 
 // Loads the metadata of dyads [first, first + cnt) of this CTA and clears
@@ -163,7 +119,6 @@ __device__ void load_group(const int* __restrict__ u,
       m[kPv] = g.ptr[dv];
       m[kDv] = g.ptr[dv + 1] - m[kPv];
     }
-    m[kLoad] = 0;
   }
   for (int t = threadIdx.x; t < cnt * kRec; t += blockDim.x) s_rec[t] = 0;
 }
@@ -172,25 +127,27 @@ __device__ __forceinline__ bool larger_is_u(const int* m) {
   return m[kDu] >= m[kDv];
 }
 
-// Position of the dyad's other endpoint in its larger row (v in N(u), or
-// u in N(v)), into the record.
-__device__ __forceinline__ void locate(const int* m, int* rec,
-                                       const int* l_idx) {
-  const bool l_is_u = larger_is_u(m);
-  rec[l_is_u ? kPosV : kPosU] =
-      lower_bound(l_idx, l_is_u ? m[kDu] : m[kDv], l_is_u ? m[kV] : m[kU]);
+__device__ __forceinline__ int smaller_degree(const int* m) {
+  return larger_is_u(m) ? m[kDv] : m[kDu];
 }
 
-// Element j of the dyad's smaller row (read from device memory) searched
-// in its larger row `l_idx` / `l_flag` (shared or device memory).  Records
+// Position of the dyad's other endpoint in its larger row (v in N(u), or
+// u in N(v)), into the record.
+__device__ __forceinline__ void locate(const int* m, int* rec, const Csr& g) {
+  const bool l_is_u = larger_is_u(m);
+  rec[l_is_u ? kPosV : kPosU] =
+      lower_bound(g.idx + (l_is_u ? m[kPu] : m[kPv]),
+                  l_is_u ? m[kDu] : m[kDv], l_is_u ? m[kV] : m[kU]);
+}
+
+// Element j of the dyad's smaller row searched in its larger row.  Records
 // the element's correction and the endpoint's position; returns 1 if the
 // element is in N(u) ∩ N(v).
-__device__ __forceinline__ int visit(const int* m, int* rec,
-                                     const int* l_idx,
-                                     const signed char* l_flag, const Csr& g,
+__device__ __forceinline__ int visit(const int* m, int* rec, const Csr& g,
                                      int j) {
   const int vu = m[kU], vv = m[kV];
   const bool l_is_u = larger_is_u(m);
+  const int pl = l_is_u ? m[kPu] : m[kPv];
   const int dl = l_is_u ? m[kDu] : m[kDv];
   const int ps = l_is_u ? m[kPv] : m[kPu];
   const int w = __ldg(g.idx + ps + j);
@@ -198,11 +155,11 @@ __device__ __forceinline__ int visit(const int* m, int* rec,
     rec[l_is_u ? kPosU : kPosV] = j;
     return 0;
   }
-  const int q = lower_bound(l_idx, dl, w);
-  if (q >= dl || l_idx[q] != w) return 0;
+  const int q = lower_bound(g.idx + pl, dl, w);
+  if (q >= dl || __ldg(g.idx + pl + q) != w) return 0;
   if (w > vu) {
     const int fs = __ldg(g.flags + ps + j);
-    const int fl = l_flag[q];
+    const int fl = __ldg(g.flags + pl + q);
     const int fu = l_is_u ? fl : fs;
     const int fv = l_is_u ? fs : fl;
     if (w > vv) {
@@ -212,6 +169,20 @@ __device__ __forceinline__ int visit(const int* m, int* rec,
     }
   }
   return 1;
+}
+
+// Counts of flags 1 and 2 over row positions (a, b].
+__device__ __forceinline__ void range_counts(const Csr& g, int a, int b,
+                                             int& c1, int& c2) {
+  if (g.wide) {
+    c1 = g.counts[b] - g.counts[a];
+    c2 = g.counts[g.m + b] - g.counts[g.m + a];
+  } else {
+    const uint32_t c = static_cast<uint32_t>(g.counts[b]) -
+                       static_cast<uint32_t>(g.counts[a]);
+    c1 = static_cast<int>(c & 0xffffu);
+    c2 = static_cast<int>(c >> 16);
+  }
 }
 
 // Turns the group's records into histogram counts (shared atomics).
@@ -231,10 +202,8 @@ __device__ void epilogue(const int* s_meta, const int* s_rec, int cnt,
     const int ends[2] = {m[kPu] + m[kDu] - 1, m[kPv] + m[kDv] - 1};
     for (int s = 0; s < 2; ++s) {
       const int shift = s ? 16 : 4;
-      const uint32_t c = static_cast<uint32_t>(g.counts[ends[s]]) -
-                         static_cast<uint32_t>(g.counts[starts[s]]);
-      const int c1 = static_cast<int>(c & 0xffffu);
-      const int c2 = static_cast<int>(c >> 16);
+      int c1, c2;
+      range_counts(g, starts[s], ends[s], c1, c2);
       const int c3 = ends[s] - starts[s] - c1 - c2;
       if (c1) atomicAdd(s_hist + c_triad_table[code0 + shift], c1);
       if (c2) atomicAdd(s_hist + c_triad_table[code0 + 2 * shift], c2);
@@ -271,25 +240,16 @@ __device__ __forceinline__ void write_partials(int* __restrict__ out,
   }
 }
 
-// Rows of at most kWarpMaxWidth entries: one warp per dyad, each warp
-// with a stage of `wcap` entries in shared memory for the dyad's larger row
-// (a plain coalesced copy); a longer row is searched where it lies.
+// Buckets up to kWarpMaxWidth: one warp per dyad.
 __global__ void __launch_bounds__(1024)
 census_csr_warp_kernel(const int* __restrict__ u, const int* __restrict__ v,
-                       long long n, Csr g, int block, int wcap,
-                       int* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int* s_meta = reinterpret_cast<int*>(smem);
-  int* s_rec = s_meta + kGroup * kMeta;
-  const int n_warps = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  int* w_idx = reinterpret_cast<int*>(smem + kGroupBytes) + warp * wcap;
-  signed char* w_flag = reinterpret_cast<signed char*>(
-                            reinterpret_cast<int*>(smem + kGroupBytes) +
-                            n_warps * wcap) +
-                        warp * wcap;
+                       long long n, Csr g, int block, int* __restrict__ out) {
+  __shared__ int s_meta[kGroup * kMeta];
+  __shared__ int s_rec[kGroup * kRec];
   __shared__ int s_hist[16];
   __shared__ unsigned long long s_dyadic[2];
+  const int n_warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (threadIdx.x < 16) s_hist[threadIdx.x] = 0;
   if (threadIdx.x < 2) s_dyadic[threadIdx.x] = 0;
   const long long first = static_cast<long long>(blockIdx.x) * block;
@@ -301,29 +261,12 @@ census_csr_warp_kernel(const int* __restrict__ u, const int* __restrict__ v,
       const int* m = s_meta + i * kMeta;
       int* rec = s_rec + i * kRec;
       if (m[kU] == kSentinel) continue;
-      const bool l_is_u = larger_is_u(m);
-      const int pl = l_is_u ? m[kPu] : m[kPv];
-      const int dl = l_is_u ? m[kDu] : m[kDv];
-      const int* l_idx = g.idx + pl;
-      const signed char* l_flag = g.flags + pl;
-      if (dl <= wcap) {
-        for (int e = lane; e < dl; e += 32) {
-          w_idx[e] = __ldg(g.idx + pl + e);
-          w_flag[e] = __ldg(g.flags + pl + e);
-        }
-        __syncwarp();
-        l_idx = w_idx;
-        l_flag = w_flag;
-      }
-      if (lane == 0) locate(m, rec, l_idx);
-      const int ds = l_is_u ? m[kDv] : m[kDu];
+      if (lane == 0) locate(m, rec, g);
+      const int ds = smaller_degree(m);
       int isz = 0;
-      for (int j = lane; j < ds; j += 32) {
-        isz += visit(m, rec, l_idx, l_flag, g, j);
-      }
+      for (int j = lane; j < ds; j += 32) isz += visit(m, rec, g, j);
       isz = __reduce_add_sync(0xffffffffu, isz);
       if (lane == 0 && isz) atomicAdd(rec + kIsz, isz);
-      __syncwarp();  // the warp's stage is rewritten by its next dyad
     }
     __syncthreads();
     epilogue(s_meta, s_rec, cnt, g, n, s_hist, s_dyadic);
@@ -332,235 +275,85 @@ census_csr_warp_kernel(const int* __restrict__ u, const int* __restrict__ v,
   write_partials(out, s_hist, s_dyadic);
 }
 
-// Copies row [p, p + len) of idx and flags, over its 16-byte-aligned
-// covering spans, into one stage (asynchronously; every thread its share).
-__device__ __forceinline__ void stage_row(int* s_idx, signed char* s_flag,
-                                          const Csr& g, int p, int len) {
-  const int a0 = p & ~3, a1 = (p + len + 3) & ~3;
-  for (int k = a0 + 4 * static_cast<int>(threadIdx.x); k < a1;
-       k += 4 * blockDim.x) {
-    int* dst = s_idx + (k - a0);
-    if (k + 4 <= g.m) {
-      cp_async16(dst, g.idx + k);
-    } else {
-      for (int e = k; e < g.m && e < k + 4; ++e) {
-        cp_async4(dst + (e - k), g.idx + e);
-      }
-    }
-  }
-  // flags are padded to whole 16-byte chunks (build_arc_flags_device)
-  const int f0 = p & ~15, f1 = (p + len + 15) & ~15;
-  for (int k = f0 + 16 * static_cast<int>(threadIdx.x); k < f1;
-       k += 16 * blockDim.x) {
-    cp_async16(s_flag + (k - f0), g.flags + k);
-  }
-}
-
-// Larger rows: one CTA walks its dyads in batches.  Consecutive dyads with
-// one larger row form a run (the bucket sort puts a hub's dyads next to
-// each other) and the row is copied once per run; consecutive runs whose
-// rows fit in a stage together form a batch.  A batch's rows are staged in
-// shared memory by cp.async (two stages: the next batch streams in while
-// this one is searched), and the CTA's threads share out all the batch's
-// smaller-row elements as one flattened list, so one barrier serves many
-// light dyads and a hub with many light neighbours keeps every thread
-// busy.  A row longer than a stage is searched in device memory.
+// Larger buckets: one CTA shares out the smaller-row elements of up to
+// kGroup dyads at a time over all its threads.
 __global__ void __launch_bounds__(kCtaThreads)
 census_csr_cta_kernel(const int* __restrict__ u, const int* __restrict__ v,
-                      long long n, Csr g, int block, int cap,
-                      int* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int* s_meta = reinterpret_cast<int*>(smem);
-  int* s_rec = s_meta + kGroup * kMeta;
-  int* s_batch_start = s_rec + kGroup * kRec;
-  int* s_batch_end = s_batch_start + kGroup;
-  int* s_batch_elems = s_batch_end + kGroup;
-  int* s_idx = reinterpret_cast<int*>(smem + kGroupBytes);  // 2 x (cap + 8)
-  const int idx_stride = cap + 8;
-  signed char* s_flag = reinterpret_cast<signed char*>(s_idx + 2 * idx_stride);
-  const int flag_stride = cap + 32;
+                      long long n, Csr g, int block, int* __restrict__ out) {
+  __shared__ int s_meta[kGroup * kMeta];
+  __shared__ int s_rec[kGroup * kRec];
   __shared__ int s_hist[16];
   __shared__ unsigned long long s_dyadic[2];
-  __shared__ int s_batches;
+  __shared__ int s_elems;
   const int tid = threadIdx.x;
   if (tid < 16) s_hist[tid] = 0;
   if (tid < 2) s_dyadic[tid] = 0;
-
   const long long first = static_cast<long long>(blockIdx.x) * block;
   for (int g0 = 0; g0 < block; g0 += kGroup) {
     const int cnt = min(kGroup, block - g0);
     load_group(u, v, g, first + g0, cnt, s_meta, s_rec);
     __syncthreads();
-    if (tid == 0) {
-      // runs and batches; each run's row gets its offsets in its batch's
-      // stage (kOffI ints, kOffF bytes; kOffI = -1: searched in place)
-      int batches = 0, used_i = 0, used_f = 0, prev_row = -1;
-      int off_i = -1, off_f = 0, elems = 0;
+    if (tid == 0) {  // each dyad's first element in the flattened list
+      int elems = 0;
       for (int i = 0; i < cnt; ++i) {
         int* m = s_meta + i * kMeta;
-        if (m[kU] == kSentinel) {  // no elements; keeps kPre ascending
-          m[kPre] = elems;
-          prev_row = -1;
-          continue;
-        }
-        const bool l_is_u = larger_is_u(m);
-        const int row = l_is_u ? m[kU] : m[kV];
-        if (row != prev_row) {
-          const int pl = l_is_u ? m[kPu] : m[kPv];
-          const int dl = l_is_u ? m[kDu] : m[kDv];
-          const int span_i = ((pl + dl + 3) & ~3) - (pl & ~3);
-          const int span_f = ((pl + dl + 15) & ~15) - (pl & ~15);
-          const bool staged = dl <= cap;
-          if (batches == 0 || (staged && (used_i + span_i > idx_stride ||
-                                          used_f + span_f > flag_stride))) {
-            if (batches) s_batch_elems[batches - 1] = elems;
-            s_batch_start[batches++] = i;
-            used_i = used_f = elems = 0;
-          }
-          off_i = -1;
-          if (staged) {
-            off_i = used_i;
-            off_f = used_f;
-            used_i += span_i;
-            used_f += span_f;
-            m[kLoad] = 1;
-          }
-          prev_row = row;
-        }
-        m[kOffI] = off_i;
-        m[kOffF] = off_f;
         m[kPre] = elems;
-        elems += l_is_u ? m[kDv] : m[kDu];
-        s_batch_end[batches - 1] = i + 1;
+        if (m[kU] != kSentinel) elems += smaller_degree(m);
       }
-      if (batches) s_batch_elems[batches - 1] = elems;
-      s_batches = batches;
+      s_elems = elems;
     }
     __syncthreads();
-    const int batches = s_batches;
-
-    // the batch's larger rows, one stage of every thread's copies
-    auto stage = [&](int bt) {
-      int* b_idx = s_idx + (bt & 1) * idx_stride;
-      signed char* b_flag = s_flag + (bt & 1) * flag_stride;
-      for (int i = s_batch_start[bt]; i < s_batch_end[bt]; ++i) {
-        const int* m = s_meta + i * kMeta;
-        if (!m[kLoad]) continue;
-        const bool l_is_u = larger_is_u(m);
-        stage_row(b_idx + m[kOffI], b_flag + m[kOffF], g,
-                  l_is_u ? m[kPu] : m[kPv], l_is_u ? m[kDu] : m[kDv]);
-      }
-    };
-    // a dyad's larger row: in batch bt's stage, or in device memory
-    auto row_of = [&](const int* m, int bt) {
-      const int pl = larger_is_u(m) ? m[kPu] : m[kPv];
-      if (m[kOffI] < 0) return Row{g.idx + pl, g.flags + pl};
-      return Row{s_idx + (bt & 1) * idx_stride + m[kOffI] + (pl & 3),
-                 s_flag + (bt & 1) * flag_stride + m[kOffF] + (pl & 15)};
-    };
-    if (batches > 0) stage(0);
-    cp_async_commit();
-    for (int bt = 0; bt < batches; ++bt) {
-      cp_async_wait_all();
-      __syncthreads();  // batch bt has landed; every thread left bt - 1
-      if (bt + 1 < batches) stage(bt + 1);  // into the stage bt - 1 used
-      cp_async_commit();
-      const int a = s_batch_start[bt], e = s_batch_end[bt];
-      for (int i = a + tid; i < e; i += blockDim.x) {
-        const int* m = s_meta + i * kMeta;
-        if (m[kU] != kSentinel) locate(m, s_rec + i * kRec, row_of(m, bt).idx);
-      }
-      for (int t = tid; t < s_batch_elems[bt]; t += blockDim.x) {
-        int lo = a, hi = e - 1;  // the last dyad whose elements start <= t
-        while (lo < hi) {
-          const int mid = (lo + hi + 1) >> 1;
-          if (s_meta[mid * kMeta + kPre] <= t) {
-            lo = mid;
-          } else {
-            hi = mid - 1;
-          }
-        }
-        const int* m = s_meta + lo * kMeta;
-        int* rec = s_rec + lo * kRec;
-        const Row l = row_of(m, bt);
-        if (visit(m, rec, l.idx, l.flag, g, t - m[kPre])) {
-          atomicAdd(rec + kIsz, 1);
+    for (int i = tid; i < cnt; i += blockDim.x) {
+      const int* m = s_meta + i * kMeta;
+      if (m[kU] != kSentinel) locate(m, s_rec + i * kRec, g);
+    }
+    for (int t = tid; t < s_elems; t += blockDim.x) {
+      int lo = 0, hi = cnt - 1;  // the last dyad whose elements start <= t
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (s_meta[mid * kMeta + kPre] <= t) {
+          lo = mid;
+        } else {
+          hi = mid - 1;
         }
       }
+      const int* m = s_meta + lo * kMeta;
+      int* rec = s_rec + lo * kRec;
+      if (visit(m, rec, g, t - m[kPre])) atomicAdd(rec + kIsz, 1);
     }
     __syncthreads();
     epilogue(s_meta, s_rec, cnt, g, n, s_hist, s_dyadic);
     __syncthreads();
   }
   write_partials(out, s_hist, s_dyadic);
-}
-
-int stage_capacity(bool pair) {
-  int dev = 0, bytes = 0;
-  cudaGetDevice(&dev);
-  if (pair) {  // two CTAs per SM, each with its 1 KB reserve
-    cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerMultiprocessor,
-                           dev);
-    bytes = bytes / 2 - 1024;
-  } else {
-    cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                           dev);
-  }
-  // static shared memory (histogram, dyadic sums) and alignment slack
-  const int fixed = kGroupBytes + 2 * (4 * 8 + 32) + 256;
-  return ((bytes - fixed) / 10) & ~15;  // two stages of (4 + 1) bytes
 }
 
 }  // namespace
 
 extern "C" {
 
-// Entries of a row that fit in one shared-memory stage of the CTA kernel
-// on the current device; longer rows are searched in device memory.
-int census_csr_stage_capacity() { return stage_capacity(false); }
-
 // Launches one CTA per `block` dyads on `stream`; D % block == 0.  `width`
-// bounds the chunk's longest row (max over dyads of max(deg u, deg v)):
-// up to kWarpMaxWidth takes the warp-per-dyad kernel with per-warp stages
-// of `width` entries, else the CTA kernel with two stages that hold at
-// least one such row; width <= 0 means unknown (CTA stages at full
-// capacity).
+// bounds every row of the dyads (the bucket width): up to kWarpMaxWidth
+// takes the warp-per-dyad kernel, else the CTA kernel.  `counts` holds m
+// packed ints (wide == 0) or two arrays of m ints (wide == 1).
 // Returns cudaGetLastError() (0 on success).
 int census_csr_launch(const int* u, const int* v, long long n,
                       const int* nbr_ptr, const int* nbr_idx,
                       const signed char* flags, const int* counts, int m,
-                      int D, int block, int width, int* out, void* stream) {
+                      int wide, int D, int block, int width, int* out,
+                      void* stream) {
   const int grid = D / block;
   if (grid <= 0) return static_cast<int>(cudaGetLastError());
-  const Csr g{nbr_ptr, nbr_idx, flags, counts, m};
+  const Csr g{nbr_ptr, nbr_idx, flags, counts, m, wide};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (width > 0 && width <= kWarpMaxWidth) {
-    const int wcap = (width + 15) & ~15;
-    const int warps = std::min(block, 32);
-    const int smem = kGroupBytes + warps * wcap * 5;
-    err = cudaFuncSetAttribute(census_csr_warp_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    census_csr_warp_kernel<<<grid, 32 * warps, smem, s>>>(u, v, n, g, block,
-                                                         wcap, out);
-    return static_cast<int>(cudaGetLastError());
+  if (width <= kWarpMaxWidth) {
+    const int warps = block < 32 ? block : 32;
+    census_csr_warp_kernel<<<grid, 32 * warps, 0, s>>>(u, v, n, g, block,
+                                                       out);
+  } else {
+    census_csr_cta_kernel<<<grid, kCtaThreads, 0, s>>>(u, v, n, g, block,
+                                                       out);
   }
-  // stages as large as two CTAs per SM allow (the thread limit of 1024-
-  // thread CTAs), or larger for a wider row, up to the block limit
-  const int cap_max = stage_capacity(false);
-  const int cap = width > 0 ? std::min(std::max((width + 15) & ~15,
-                                                stage_capacity(true)),
-                                       cap_max)
-                            : cap_max;
-  const int smem = kGroupBytes + 2 * 4 * (cap + 8) + 2 * (cap + 32);
-  err = cudaFuncSetAttribute(census_csr_cta_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  census_csr_cta_kernel<<<grid, kCtaThreads, smem, s>>>(u, v, n, g, block,
-                                                        cap, out);
   return static_cast<int>(cudaGetLastError());
 }
 

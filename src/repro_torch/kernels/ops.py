@@ -25,17 +25,11 @@ from .flash_attention import flash_attention  # noqa: F401
 from .triad_census import SENTINEL
 
 TILE_NAMES = ("out_u", "in_u", "out_v", "in_v", "nbr_u", "nbr_v")
-#: rows of the packed range counts hold two 16-bit fields
-MAX_FLAG_DEGREE = 2**16 - 1
+#: the packed range counts hold two 16-bit fields: degrees up to this
+MAX_PACKED_DEGREE = 2**16 - 1
 
 
-def _flag_length(m: int) -> int:
-    """Flags are padded to whole 16-byte chunks, so the CSR kernel can
-    copy any row's covering span 16 bytes at a time."""
-    return max(16, -(-m // 16) * 16)
-
-
-def build_arc_flags(out_ptr, out_idx, nbr_ptr, nbr_idx):
+def build_arc_flags(out_ptr, out_idx, nbr_ptr, nbr_idx, *, wide=False):
     """Host twin of :func:`build_arc_flags_device` on padded numpy arrays."""
     n = len(nbr_ptr) - 1
     M = len(nbr_idx)
@@ -47,8 +41,8 @@ def build_arc_flags(out_ptr, out_idx, nbr_ptr, nbr_idx):
                          np.diff(out_ptr)[:n])
     arcs = set(zip(out_rows.tolist(),
                    np.asarray(out_idx[: out_ptr[-1]], np.int64).tolist()))
-    flags = np.zeros(_flag_length(M), np.int8)
-    counts = np.zeros(M, np.int64)
+    flags = np.zeros(M, np.int8)
+    counts = np.zeros((2, M), np.int64)
     for p in np.flatnonzero(live):
         x, y = int(rows[p]), int(w[p])
         flags[p] = ((x, y) in arcs) + 2 * ((y, x) in arcs)
@@ -57,8 +51,10 @@ def build_arc_flags(out_ptr, out_idx, nbr_ptr, nbr_idx):
         for p in range(nbr_ptr[x], nbr_ptr[x + 1]):
             if flags[p] in (1, 2):
                 run[flags[p] - 1] += 1
-            counts[p] = run[0] + (run[1] << 16)
-    return flags, _to_int32_bits(counts)
+            counts[:, p] = run
+    if wide:
+        return flags, counts.astype(np.int32)
+    return flags, _to_int32_bits(counts[0] + (counts[1] << 16))
 
 
 def _to_int32_bits(x):
@@ -69,20 +65,23 @@ def _to_int32_bits(x):
 
 
 def build_arc_flags_device(out_ptr: torch.Tensor, out_idx: torch.Tensor,
-                           nbr_ptr: torch.Tensor, nbr_idx: torch.Tensor):
+                           nbr_ptr: torch.Tensor, nbr_idx: torch.Tensor, *,
+                           wide: bool = False):
     """Direction flags and per-row range counts of the undirected CSR.
 
     For the arc at position ``p`` of row ``x`` of ``nbr`` (``w =
     nbr_idx[p]``), ``flags[p] = [x -> w] + 2 [w -> x]`` (int8, 1..3 for a
-    real arc).  ``counts[p]`` packs how many of the row's positions up to
-    and including ``p`` have flag 1 (low 16 bits) and flag 2 (high 16
-    bits), so the counts over positions ``(a, b]`` of one row are
-    ``counts[b] - counts[a]`` in 32-bit unsigned arithmetic.  That needs
-    every degree below 2**16 (the caller checks, :data:`MAX_FLAG_DEGREE`).
+    real arc).  The range counts say how many of the row's positions up to
+    and including ``p`` have flag 1 and flag 2, so the counts over
+    positions ``(a, b]`` of one row are the difference of two reads.
+    Packed (the default), ``counts[p]`` holds them in its low and high 16
+    bits and the difference is taken in 32-bit unsigned arithmetic: every
+    degree must stay at or below :data:`MAX_PACKED_DEGREE`.  ``wide``
+    gives them as two int32 rows, ``counts[0, p]`` and ``counts[1, p]``,
+    for any degree.
 
     Inputs are the bucket-padded CSRs (padded ptr rows repeat the last
-    offset); padding arcs get flag 0 and count 0.  ``flags`` is padded
-    with zeros to a whole number of 16-byte chunks.  Each flag comes from
+    offset); padding arcs get flag 0 and count 0.  Each flag comes from
     two ``searchsorted`` of 64-bit keys ``x * n + w`` into the sorted
     out-arc keys.
     """
@@ -106,15 +105,24 @@ def build_arc_flags_device(out_ptr: torch.Tensor, out_idx: torch.Tensor,
         at = torch.searchsorted(out_keys, key).clamp_(max=out_keys.shape[0] - 1)
         return live & (out_keys[at] == key)
 
-    dir_ = is_arc(rows, w).to(torch.int8) + 2 * is_arc(w, rows).to(torch.int8)
-    flags = torch.zeros(_flag_length(M), dtype=torch.int8, device=dev)
-    flags[:M] = dir_
-    packed = (dir_ == 1).long() + ((dir_ == 2).long() << 16)
-    run = torch.cumsum(packed, 0)
-    start = nbr_ptr[rows.clamp(max=n - 1)].long()
-    before = (run - packed)[start.clamp(max=M - 1)]
-    counts = torch.where(live, run - before, 0)
-    return flags, _to_int32_bits(counts)
+    flags = (is_arc(rows, w).to(torch.int8)
+             + 2 * is_arc(w, rows).to(torch.int8))
+    # one 1-D scan of both counts, flag 1 in the low and flag 2 in the
+    # high 32 bits: a scan along dim 1 of a (2, M) tensor took 1.67 ms at
+    # Slashdot size on an H100 (PERF.md); in place after the scan, so the
+    # run's peak memory holds no more M-long int64 temporaries than it must
+    ones = (flags == 1).long() + ((flags == 2).long() << 32)
+    counts = torch.cumsum(ones, 0)
+    before = (counts - ones)[
+        nbr_ptr[rows.clamp(max=n - 1)].long().clamp(max=M - 1)]
+    del ones
+    counts.sub_(before).masked_fill_(~live, 0)
+    del before
+    high = counts >> 32
+    counts.bitwise_and_(0xFFFFFFFF)
+    if wide:
+        return flags, torch.stack([counts, high]).int()
+    return flags, _to_int32_bits(counts.add_(high.bitwise_left_shift_(16)))
 
 
 def _pad_rows(ptr, idx, rows, K):

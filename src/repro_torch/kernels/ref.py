@@ -96,7 +96,9 @@ def census_csr_ref(u, v, n: int, arrays, *, block=None,
     dev = u.device
     D = u.shape[0]
     ptr, idx = arrays.nbr_ptr, arrays.nbr_idx
-    flags, cnt = arrays.nbr_flag.long(), arrays.nbr_cnt.long() & 0xFFFFFFFF
+    flags, cnt = arrays.nbr_flag.long(), arrays.nbr_cnt.long()
+    if cnt.dim() == 1:  # packed: flag-1 counts low, flag-2 counts high
+        cnt = torch.stack([cnt & 0xFFFF, (cnt >> 16) & 0xFFFF])
     n_rows, M = ptr.shape[0] - 1, idx.shape[0]
     pos = torch.arange(M, dtype=ptr.dtype, device=dev)
     rows = torch.searchsorted(ptr, pos, right=True).long() - 1
@@ -129,8 +131,7 @@ def census_csr_ref(u, v, n: int, arrays, *, block=None,
     for at, row_start, deg, shift in ((at_v, pu, du, 4), (at_u, pv, dv, 16)):
         # flag counts over the row's positions past the other vertex
         end = (row_start + deg - 1).clamp(min=0)
-        c = cnt[end] - cnt[at]
-        c1, c2 = c & 0xFFFF, c >> 16
+        c1, c2 = cnt[:, end] - cnt[:, at]
         c3 = end - at - c1 - c2
         for d, c_d in ((1, c1), (2, c2), (3, c3)):
             add(every, code0 + shift * d, torch.where(valid, c_d, 0))

@@ -108,19 +108,12 @@ census_tiles.launches = 0
 def _csr_lib() -> ctypes.CDLL:
     lib = _build.load("census_csr")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.census_csr_launch.argtypes = [p, p, ll, p, p, p, p, i, i, i, i, p, p]
+    lib.census_csr_launch.argtypes = [p, p, ll, p, p, p, p, i, i, i, i, i, p,
+                                      p]
     lib.census_csr_launch.restype = i
-    lib.census_csr_stage_capacity.argtypes = []
-    lib.census_csr_stage_capacity.restype = i
     lib.census_csr_error_string.argtypes = [i]
     lib.census_csr_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def census_csr_stage_capacity() -> int:
-    """Longest row the CSR kernel stages in shared memory on the current
-    CUDA device; longer rows are searched in device memory."""
-    return _csr_lib().census_csr_stage_capacity()
 
 
 def _check_csr(u, v, n, arrays, block):
@@ -134,7 +127,8 @@ def _check_csr(u, v, n, arrays, block):
                 nbr_flag=(arrays.nbr_flag, torch.int8),
                 nbr_cnt=(arrays.nbr_cnt, torch.int32))
     for name, (t, dtype) in want.items():
-        if t.dim() != 1 or t.dtype != dtype or not t.is_contiguous():
+        if (t.dtype != dtype or not t.is_contiguous()
+                or (t.dim() != 1 and name != "nbr_cnt")):
             raise ValueError(f"{name} must be a contiguous 1-D {dtype} "
                              f"tensor, got {t.dtype} {tuple(t.shape)} "
                              f"(contiguous={t.is_contiguous()})")
@@ -142,13 +136,13 @@ def _check_csr(u, v, n, arrays, block):
             raise ValueError(f"all inputs must be on {u.device}, "
                              f"{name} is on {t.device}")
     M = arrays.nbr_idx.shape[0]
-    if arrays.nbr_cnt.shape[0] != M:
-        raise ValueError(f"nbr_cnt must have nbr_idx's length {M}, got "
-                         f"{arrays.nbr_cnt.shape[0]}")
-    F = arrays.nbr_flag.shape[0]
-    if F < M or F % 16:
-        raise ValueError(f"nbr_flag must cover nbr_idx ({M}) in whole "
-                         f"16-byte chunks, got length {F}")
+    if arrays.nbr_flag.shape != (M,):
+        raise ValueError(f"nbr_flag must have nbr_idx's length {M}, got "
+                         f"{tuple(arrays.nbr_flag.shape)}")
+    if arrays.nbr_cnt.shape not in ((M,), (2, M)):
+        raise ValueError(f"nbr_cnt must have nbr_idx's length {M}, packed "
+                         f"({M},) or wide (2, {M}), got "
+                         f"{tuple(arrays.nbr_cnt.shape)}")
     D = u.shape[0]
     if v.shape != (D,):
         raise ValueError(f"u and v must be ({D},), got {tuple(u.shape)} and "
@@ -157,18 +151,17 @@ def _check_csr(u, v, n, arrays, block):
         raise ValueError(f"D={D} is not a multiple of block={block}")
 
 
-def census_csr(u, v, n: int, arrays, *, block: int = 32,
-               k: "int | None" = None) -> torch.Tensor:
+def census_csr(u, v, n: int, arrays, *, k: int,
+               block: int = 32) -> torch.Tensor:
     """Census of dyadic + connected triads read straight from the CSR.
 
     ``u``, ``v``: (D,) int32 canonical dyads, ``u == SENTINEL`` marking a
     padded dyad; ``arrays``: the graph's
     :class:`~repro_torch.core.graph.GraphArrays` with the arc flags and
     range counts (``Plan.padded_arrays(g, with_flags=True)``).  ``k``
-    bounds the longest row of the dyads, ``max(deg u, deg v)``: up to 128
-    the kernel maps one warp to a dyad, above it one CTA, with
-    shared-memory stages sized to ``k``; ``None`` sizes them at full
-    capacity.  Any row length gives the right result.  Returns the
+    bounds every row of the dyads, ``max(deg u, deg v)`` (the tiles
+    backend passes its bucket width): up to 512 the kernel maps one warp
+    to a dyad, above it one CTA to a group of dyads.  Returns the
     (D / block, 16) int32 partials :func:`census_tiles` gives for the same
     dyads.  ``census_csr.launches`` counts CUDA kernel launches.
     """
@@ -178,9 +171,6 @@ def census_csr(u, v, n: int, arrays, *, block: int = 32,
         return census_csr_ref(u, v, n, arrays, block=block)
     if dev.type != "cuda":
         raise ValueError(f"census_csr runs on cuda or cpu, not {dev}")
-    for name in ("nbr_idx", "nbr_flag"):
-        if getattr(arrays, name).data_ptr() % 16:
-            raise ValueError(f"{name} must start on a 16-byte boundary")
     D = u.shape[0]
     out = torch.empty((D // block, 16), dtype=torch.int32, device=dev)
     if D == 0:
@@ -191,8 +181,9 @@ def census_csr(u, v, n: int, arrays, *, block: int = 32,
         err = lib.census_csr_launch(
             u.data_ptr(), v.data_ptr(), n, arrays.nbr_ptr.data_ptr(),
             arrays.nbr_idx.data_ptr(), arrays.nbr_flag.data_ptr(),
-            arrays.nbr_cnt.data_ptr(), arrays.nbr_idx.shape[0], D, block,
-            0 if k is None else int(k), out.data_ptr(), stream)
+            arrays.nbr_cnt.data_ptr(), arrays.nbr_idx.shape[0],
+            int(arrays.nbr_cnt.dim() == 2), D, block, int(k),
+            out.data_ptr(), stream)
     if err:
         raise RuntimeError("census_csr launch failed: "
                            + lib.census_csr_error_string(err).decode())

@@ -23,7 +23,6 @@ from repro_torch.core.graph import from_edges
 from repro_torch.engine import EngineConfig, compile
 from repro_torch.engine import backends
 from repro_torch.kernels import ops as tops
-from repro_torch.kernels import triad_census
 from repro_torch.kernels.ref import census_csr_ref, census_tiles_ref
 from repro_torch.kernels.triad_census import (SENTINEL, census_csr,
                                               census_tiles)
@@ -77,8 +76,7 @@ def _closed_form(g, partial_sum):
 
 @pytest.mark.parametrize("name", sorted(GRAPHS))
 def test_flags_and_counts_equal_numpy_twin(name):
-    """Padding included: padded arcs get flag 0 and count 0, and the flags
-    run to a whole number of 16-byte chunks of zeros."""
+    """Padding included: padded arcs get flag 0 and count 0."""
     g = GRAPHS[name](device="cpu")
     a = _arrays(g)
     flags, counts = tops.build_arc_flags(
@@ -86,11 +84,48 @@ def test_flags_and_counts_equal_numpy_twin(name):
     np.testing.assert_array_equal(a.nbr_flag.numpy(), flags)
     np.testing.assert_array_equal(a.nbr_cnt.numpy(), counts)
     M = a.nbr_idx.shape[0]
-    assert a.nbr_flag.dtype == torch.int8 and a.nbr_flag.shape[0] % 16 == 0
+    assert a.nbr_flag.dtype == torch.int8 and a.nbr_flag.shape == (M,)
     assert a.nbr_cnt.dtype == torch.int32 and a.nbr_cnt.shape == (M,)
     live = np.arange(M) < g.m_nbr
-    assert (flags[:M][live] > 0).all() and not flags[:M][~live].any()
-    assert not flags[M:].any() and not counts[~live].any()
+    assert (flags[live] > 0).all() and not flags[~live].any()
+    assert not counts[~live].any()
+
+
+def _wide(a):
+    """``a`` with its range counts rebuilt in the wide layout."""
+    flags, counts = tops.build_arc_flags_device(
+        a.out_ptr, a.out_idx, a.nbr_ptr, a.nbr_idx, wide=True)
+    assert torch.equal(flags, a.nbr_flag)
+    return a._replace(nbr_cnt=counts)
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_wide_counts_equal_numpy_twin_and_packed_fields(name):
+    """The wide layout: two int32 rows, padding included, equal to the
+    numpy twin and to the packed layout's two 16-bit fields."""
+    g = GRAPHS[name](device="cpu")
+    a = _arrays(g)
+    wide = _wide(a).nbr_cnt
+    flags, counts = tops.build_arc_flags(
+        *(x.numpy() for x in (a.out_ptr, a.out_idx, a.nbr_ptr, a.nbr_idx)),
+        wide=True)
+    np.testing.assert_array_equal(a.nbr_flag.numpy(), flags)
+    np.testing.assert_array_equal(wide.numpy(), counts)
+    assert wide.dtype == torch.int32 and wide.shape == (2, a.nbr_idx.shape[0])
+    packed = a.nbr_cnt.long()
+    assert torch.equal(wide[0].long(), packed & 0xFFFF)
+    assert torch.equal(wide[1].long(), (packed >> 16) & 0xFFFF)
+
+
+@pytest.mark.parametrize("block", [8, 32])
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_wide_counts_give_the_same_partials(name, block):
+    g = GRAPHS[name](device="cpu")
+    a = _arrays(g)
+    u, v = _dyads(g, block, 5)
+    assert torch.equal(census_csr(u, v, g.n, _wide(a), k=g.max_deg,
+                                  block=block),
+                       census_csr(u, v, g.n, a, k=g.max_deg, block=block))
 
 
 @pytest.mark.parametrize("block", [8, 32])
@@ -112,7 +147,7 @@ def test_plain_version_equals_pallas_and_tile_plain_version(name, block):
     assert block * g.n < 2**24  # the Pallas float32 epilogue is exact here
     a = _arrays(g, with_in_csr=True)
     u, v = _dyads(g, block, 11)
-    got = census_csr(u, v, g.n, a, block=block)
+    got = census_csr(u, v, g.n, a, k=g.max_deg, block=block)
     assert got.dtype == torch.int32 and got.shape == (u.shape[0] // block, 16)
 
     ja = jcompile(jg, ("triad_census",), JConfig(backend="pallas")
@@ -180,7 +215,7 @@ def test_large_n_case_is_exact(extras):
     """block * n > 2**24: the int32 partials stay exact (the Pallas
     kernel's float32 epilogue would round here, ROADMAP Queue 3)."""
     g, a, u, v = _large_n_inputs(extras)
-    got = census_csr(u, v, g.n, a, block=32)
+    got = census_csr(u, v, g.n, a, k=g.max_deg, block=32)
     bins = got.long().sum(0)
     if not extras:
         assert int(bins[1]) == 32 * (N_LARGE - 2) == 134217760
@@ -197,12 +232,15 @@ def test_large_n_case_is_exact(extras):
 
 def test_tiles_backend_runs_csr_kernel_once_per_chunk(monkeypatch):
     """The main path calls census_csr once per chunk with the chunk's
-    longest row as its bound, and never gathers tiles."""
+    bucket width as its bound, and never gathers tiles."""
     calls = []
 
-    def counting(u, v, n, arrays, *, block, k):
-        calls.append(k)
-        return census_csr(u, v, n, arrays, block=block, k=k)
+    def counting(u, v, n, arrays, *, k, block):
+        valid = u != SENTINEL
+        deg = arrays.nbr_ptr[1:] - arrays.nbr_ptr[:-1]
+        rows = torch.cat([u[valid], v[valid]]).long()
+        calls.append((k, int(deg[rows].max())))
+        return census_csr(u, v, n, arrays, k=k, block=block)
 
     def forbidden(*args, **kwargs):
         raise AssertionError("the main path gathered tiles")
@@ -214,7 +252,10 @@ def test_tiles_backend_runs_csr_kernel_once_per_chunk(monkeypatch):
         backend="tiles", device="cpu", chunk_dyads=64, batch=16))
     raw = plan.run_raw(g)
     assert len(calls) == plan.stats["chunks"] > 1
-    assert all(1 <= k <= g.max_deg for k in calls) and g.max_deg in calls
+    widths = {min(b, plan.meta.k) for b in plan.config.buckets} | {
+        plan.meta.k}
+    assert all(k in widths and row <= k for k, row in calls)
+    assert plan.meta.k in {k for k, _ in calls}
     counts = plan.layout.finalize(raw, g)["triad_census"].counts
     np.testing.assert_array_equal(counts, brute_force_census(g).counts)
 
@@ -223,7 +264,7 @@ def test_cpu_path_launches_no_kernel():
     g = GRAPHS["rmat5"](device="cpu")
     u, v = _dyads(g, 8, 0)
     before = census_csr.launches
-    census_csr(u, v, g.n, _arrays(g), block=8)
+    census_csr(u, v, g.n, _arrays(g), k=g.max_deg, block=8)
     assert census_csr.launches == before
 
 
@@ -234,29 +275,65 @@ def test_cpu_path_launches_no_kernel():
     (lambda a: dict(a, arrays=a["arrays"]._replace(nbr_flag=None)),
      "nbr_flag and nbr_cnt"),
     (lambda a: dict(a, arrays=a["arrays"]._replace(
-        nbr_flag=a["arrays"].nbr_flag[:-1].contiguous())), "16-byte"),
+        nbr_flag=a["arrays"].nbr_flag[:-1].contiguous())), "length"),
     (lambda a: dict(a, arrays=a["arrays"]._replace(
         nbr_cnt=a["arrays"].nbr_cnt[:-1].contiguous())), "length"),
     (lambda a: dict(a, v=a["v"][:-1].contiguous()), "must be"),
-], ids=["block", "n", "dtype", "no-flags", "flag-chunks", "count-length",
+], ids=["block", "n", "dtype", "no-flags", "flag-length", "count-length",
         "length"])
 def test_wrapper_rejects_bad_inputs(mutate, match):
     g = GRAPHS["rmat5"](device="cpu")
     u, v = _dyads(g, 8, 0)
     a = mutate(dict(u=u, v=v, n=g.n, arrays=_arrays(g), block=8))
     with pytest.raises(ValueError, match=match):
-        census_csr(a["u"], a["v"], a["n"], a["arrays"], block=a["block"])
+        census_csr(a["u"], a["v"], a["n"], a["arrays"], k=g.max_deg,
+                   block=a["block"])
 
 
-def test_degree_past_packed_counts_raises():
-    """The packed range counts hold degrees below 2**16."""
-    n = 2**16 + 2
-    g = from_edges(n, np.zeros(n - 1, np.int64), np.arange(1, n),
-                   device="cpu")
+def test_degree_past_packed_counts_takes_wide_layout():
+    """Past degree 2**16 - 1 the plan builds the wide range counts, and the
+    tiles backend gives the exact census.  The graph is a star whose hub
+    has 66,000 out-arcs, more than a 16-bit field holds, 2,000 in-arcs and
+    2,000 mutual arcs, plus 10 isolated vertices: triad {hub, i, j} has
+    code dir(hub, i) + 4 dir(hub, j), and {hub, i, isolated} is a 012
+    triad, or a 102 one when i is mutual."""
+    n_cls = {1: 66_000, 2: 2_000, 3: 2_000}
+    k = sum(n_cls.values())
+    n = k + 1 + 10
+    leaves = np.arange(1, k + 1)
+    kind = np.repeat([1, 2, 3], list(n_cls.values()))
+    src = np.concatenate([np.zeros(int((kind != 2).sum()), np.int64),
+                          leaves[kind != 1]])
+    dst = np.concatenate([leaves[kind != 2],
+                          np.zeros(int((kind != 1).sum()), np.int64)])
+    g = from_edges(n, src, dst, device="cpu")
+    assert g.max_deg == k > tops.MAX_PACKED_DEGREE
     plan = compile(g, ("triad_census",),
                    EngineConfig(backend="tiles", device="cpu"))
-    with pytest.raises(ValueError, match="packed"):
-        plan.padded_arrays(g, with_flags=True)
+    assert plan.padded_arrays(g, with_flags=True).nbr_cnt.shape[0] == 2
+    want = np.zeros(16, np.int64)
+    for a in (1, 2, 3):
+        for b in (1, 2, 3):
+            pairs = (n_cls[a] * (n_cls[a] - 1) // 2 if a == b
+                     else n_cls[a] * n_cls[b] if a < b else 0)
+            want[ttable.TRIAD_TABLE_64[a + 4 * b]] += pairs
+    want[1] += 10 * (n_cls[1] + n_cls[2])
+    want[2] += 10 * n_cls[3]
+    want[0] = n * (n - 1) * (n - 2) // 6 - want.sum()
+    np.testing.assert_array_equal(plan.run(g)["triad_census"].counts, want)
+
+
+def test_wide_counts_on_hub_rows_equal_tile_plain_version():
+    """A hub of degree 70,000 (67,200 out-arcs) joined to a random
+    digraph: the plain version on the wide counts equals the six-tile
+    plain version, row for row, on hub dyads and others."""
+    g = _hub_graph("cpu", degree=70_000, n=80_000, p_kind=(0.96, 0.02, 0.02))
+    a = _arrays(g, with_in_csr=True)
+    assert a.nbr_cnt.shape[0] == 2
+    u, v = _hub_dyads(g, 16, "cpu")
+    got = census_csr(u, v, g.n, a, k=g.max_deg, block=8)
+    want = census_tiles_ref(*_tiles(a, u, v, g.max_deg), u, v, g.n, block=8)
+    assert torch.equal(got, want)
 
 
 def test_cuda_kernel_table_equals_triad_table():
@@ -266,13 +343,14 @@ def test_cuda_kernel_table_equals_triad_table():
     np.testing.assert_array_equal(values, ttable.TRIAD_TABLE_64)
 
 
-def _hub_graph(device, degree=30_000, n=40_000, seed=0):
-    """One hub (vertex 0) joined to ``degree`` vertices in random
-    directions (a third mutual), plus a sparse random digraph among the
+def _hub_graph(device, degree=30_000, n=40_000, seed=0,
+               p_kind=(1 / 3, 1 / 3, 1 / 3)):
+    """One hub (vertex 0) joined to ``degree`` vertices, out, in or mutual
+    with probabilities ``p_kind``, plus a sparse random digraph among the
     rest, so hub dyads have non-empty intersections."""
     rng = np.random.default_rng(seed)
     leaves = rng.choice(np.arange(1, n), size=degree, replace=False)
-    kind = rng.integers(0, 3, size=degree)
+    kind = rng.choice(3, size=degree, p=p_kind)
     src = [np.zeros(int((kind != 1).sum()), np.int64), leaves[kind != 0]]
     dst = [leaves[kind != 1], np.zeros(int((kind != 0).sum()), np.int64)]
     m = 4 * n
@@ -282,47 +360,56 @@ def _hub_graph(device, degree=30_000, n=40_000, seed=0):
                       device=device)
 
 
+def _hub_dyads(g, count, device):
+    """The first ``count`` canonical dyads of the hub (vertex 0) and the
+    first ``count`` of the rest."""
+    u, v = tcensus.canonical_dyads(g)
+    pick = np.concatenate([np.flatnonzero(u == 0)[:count],
+                           np.flatnonzero(u != 0)[:count]])
+    return (torch.as_tensor(u[pick], device=device),
+            torch.as_tensor(v[pick], device=device))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [None, 32, 128, 512, 8192])
+@pytest.mark.parametrize("k", [32, 128, 512, 8192])
 @pytest.mark.parametrize("block", [8, 32])
 def test_cuda_kernel_equals_plain_version(cuda_device, block, k):
-    """Both mappings (warp per dyad up to k = 128, CTA above), stage sizes
-    smaller than the rows included: the bound only picks the mapping."""
+    """Both mappings (warp per dyad up to k = 512, CTA above), with bounds
+    below the rows too: the bound only picks the mapping."""
     for name in ("rmat7", "er60"):
         g = GRAPHS[name](device=cuda_device)
         a = _arrays(g, cuda_device)
         u, v = _dyads(g, block, 5, cuda_device)
-        before = census_csr.launches
-        got = census_csr(u, v, g.n, a, block=block, k=k)
-        torch.cuda.synchronize()
-        assert census_csr.launches == before + 1
-        assert torch.equal(got, census_csr_ref(u, v, g.n, a, block=block))
+        for arrays in (a, _wide(a)):
+            before = census_csr.launches
+            got = census_csr(u, v, g.n, arrays, k=k, block=block)
+            torch.cuda.synchronize()
+            assert census_csr.launches == before + 1
+            assert torch.equal(got, census_csr_ref(u, v, g.n, a, block=block))
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("degree", [30_000, 70_000])
 @pytest.mark.parametrize("block", [8, 32])
-def test_cuda_kernel_hub_above_stage_capacity(cuda_device, block):
-    """A hub row of 30,000 entries is longer than a shared-memory stage:
-    the kernel searches it in device memory, same result."""
-    g = _hub_graph(cuda_device)
-    assert g.max_deg > triad_census.census_csr_stage_capacity()
+def test_cuda_kernel_hub_rows(cuda_device, block, degree):
+    """Hub rows of 30,000 and 70,000 entries (the latter past the packed
+    counts, 96 % of its arcs out of the hub, so in the wide layout), on
+    256 hub dyads and 256 others, through both mappings."""
+    g = _hub_graph(cuda_device, degree=degree, n=degree + 10_000,
+                   p_kind=(0.96, 0.02, 0.02))
     a = _arrays(g, cuda_device)
-    u, v = tcensus.canonical_dyads(g)
-    hub = np.flatnonzero(u == 0)[:256]
-    rest = np.flatnonzero(u != 0)[:256]
-    pick = np.concatenate([hub, rest])
-    u = torch.as_tensor(u[pick], device=cuda_device)
-    v = torch.as_tensor(v[pick], device=cuda_device)
-    for k in (None, 32768):
-        got = census_csr(u, v, g.n, a, block=block, k=k)
-        assert torch.equal(got, census_csr_ref(u, v, g.n, a, block=block))
+    assert a.nbr_cnt.dim() == (2 if degree > tops.MAX_PACKED_DEGREE else 1)
+    u, v = _hub_dyads(g, 256, cuda_device)
+    want = census_csr_ref(u, v, g.n, a, block=block)
+    for k in (512, g.max_deg):
+        assert torch.equal(census_csr(u, v, g.n, a, k=k, block=block), want)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("extras", [False, True], ids=["tile-case", "extras"])
 def test_cuda_kernel_large_n_case(cuda_device, extras):
     g, a, u, v = _large_n_inputs(extras, cuda_device)
-    got = census_csr(u, v, g.n, a, block=32)
+    got = census_csr(u, v, g.n, a, k=g.max_deg, block=32)
     assert torch.equal(got, census_csr_ref(u, v, g.n, a, block=32))
     if not extras:
         assert int(got.long().sum(0)[1]) == 134217760
