@@ -38,6 +38,32 @@ script exits non-zero and prints no result.  Phases:
              time, peak memory, bins equal to ``"search"`` and summing to
              C(n, 3), and the CSR kernel against its plain version on the
              first and last chunk of each bucket.
+   fused   — on Slashdot, the four built-in ops in one tiles pass, cold
+             and warm beside the census-only plan: the census bins equal
+             the census-only plan's, triadic_profile agrees with them, the
+             dyad census equals a count from the arc list, degree_stats
+             its numpy reference, the raw vector ``"search"``; 63 CSR
+             launches and one copy per run; a plan of dyad_census and
+             degree_stats launches no census kernel and builds no flags;
+             a profiled warm run's device time by group (census_csr,
+             member probes, once, fold and the rest).
+   fleet   — ``CensusService(ServiceConfig(max_batch=8,
+             max_wait_requests=16))`` over 64 R-MAT scale-14 requests of
+             one bucket (every 4th with degree_stats) and over a mixed
+             fleet (32 of them, 16 Erdos-Renyi, 4 eatSR at full size,
+             through ``run_fleet``): every completion equal to a warm
+             single run, one in eight to ``"search"``, every census C(n,
+             3); one copy per batch, one CSR launch per chunk; requests/s
+             beside one warm ``plan.run`` per request; a profiled drive;
+             a batch with a poisoned member completes its 7 peers.
+   session — on Slashdot, ``plan.apply_delta`` (threshold 1.0) for k =
+             4, 64 and 1024 arcs removed and added: mode "delta", raw
+             bins equal to the full recompute on the card, one copy per
+             application; warm delta time against full time, the host's
+             rebuild and the device passes timed apart; then a subscribed
+             session streaming 8 mutations of k = 4 and one of k = 1024
+             at the default threshold, each poll equal to a full
+             recompute, the delta/full split matching the fractions.
 5. flash_kernel — the flash-attention kernel against its plain version
              (``flash_attention_ref``): bf16 at the qwen3-4b prefill shape
              (B 4, T 2048, S 2080, H 32, Hkv 8, D 128) within 2e-2, f32
@@ -59,7 +85,8 @@ script exits non-zero and prints no result.  Phases:
 7. serve_f32 — the same width at 2 layers in f32: prefill logits of the
              flash path against the dense path (<= 1e-3), and decode
              logits against the full forward at every position (<= 1e-3).
-8. the kernels line, then the result line.
+8. the kernels line (census_csr's row adds its launches in the fused,
+   fleet and session phases), then the result line.
 
 Exits non-zero without a CUDA device.
 """
@@ -703,6 +730,468 @@ def amazon_phase(torch, dev, rates):
     torch.cuda.empty_cache()
 
 
+# the fused analytics of the fused phase, and the fleet's two-op requests
+FUSED_OPS = ("triad_census", "dyad_census", "degree_stats", "triadic_profile")
+FLEET_OPS = ("triad_census", "degree_stats")
+FOOTPRINTS = (4, 64, 1024)  # arcs removed and added per delta
+
+
+def c3(n):
+    return n * (n - 1) * (n - 2) // 6
+
+
+def warm_times(torch, fns, reps):
+    """Host-clock seconds of each of ``fns`` (every call ends in a copy to
+    the host), run in turns ``reps`` times; returns one list per fn."""
+    out = [[] for _ in fns]
+    for _ in range(reps):
+        for times, fn in zip(out, fns):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+    return out
+
+
+def host_dyad_census(g):
+    """The dyad census of ``g`` from its arc list: an arc is mutual when
+    its reverse is an arc too (keys ``src * n + dst``)."""
+    import numpy as np
+
+    from repro_torch.core.graph import arcs_host
+
+    src, dst = arcs_host(g)
+    key = src * g.n + dst
+    mutual_arcs = int(np.isin(dst * g.n + src, key).sum())
+    mutual, asym = mutual_arcs // 2, g.m - mutual_arcs
+    return mutual, asym, g.n * (g.n - 1) // 2 - mutual - asym
+
+
+def labelled_plan(plan):
+    """A fresh copy of ``plan`` (outside the plan cache) whose member
+    probes, once contribution and stream set-up run under
+    ``torch.profiler.record_function`` labels, and the undo.  (The census
+    kernel is launched through ctypes, not a torch op, so the profiler
+    puts it under no label: it is found by its kernel name.)"""
+    from torch.profiler import record_function
+
+    from repro_torch.engine import backends
+    from repro_torch.engine.ops import OpLayout
+    from repro_torch.engine.plan import Plan
+
+    def label(name, fn):
+        def wrapped(*args, **kwargs):
+            with record_function(name):
+                return fn(*args, **kwargs)
+        return wrapped
+
+    saved = (backends.tiles_stream, OpLayout.batch_kernel,
+             OpLayout.once_kernel)
+    backends.tiles_stream = label("group:stream", saved[0])
+    OpLayout.batch_kernel = lambda self, **kw: label(
+        "group:member_probes", saved[1](self, **kw))
+    OpLayout.once_kernel = lambda self: label("group:once", saved[2](self))
+    labelled = Plan(plan.meta, plan.ops, plan.config, plan.backend,
+                    plan.device)
+
+    def undo():
+        (backends.tiles_stream, OpLayout.batch_kernel,
+         OpLayout.once_kernel) = saved
+
+    return labelled, undo
+
+
+def group_split(torch, fn):
+    """One run of ``fn`` under torch.profiler: device time of each
+    ``group:`` label and of the census kernels, the rest of the device
+    time (the per-chunk fold and the fetch), and the device's idle
+    share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    # a label's device-side span is a user annotation, not a kernel: the
+    # kernels under a label are summed on its host-side event
+    busy = sum(e.self_device_time_total for e in events
+               if e.device_type == cuda and not e.is_user_annotation) / 1e3
+    groups = {e.key[6:]: e.device_time_total / 1e3 for e in events
+              if e.key.startswith("group:") and e.device_type == cpu}
+    groups["census_csr"] = sum(
+        e.self_device_time_total for e in events if e.device_type == cuda
+        and not e.is_user_annotation and "census_csr" in e.key) / 1e3
+    launches = sum(e.count for e in events
+                   if e.device_type == cuda and not e.is_user_annotation)
+    return dict(wall_ms=wall_ms, device_busy_ms=busy,
+                device_idle_share=1 - busy / wall_ms,
+                kernel_launches=launches, groups_ms=groups,
+                fold_and_rest_ms=busy - sum(groups.values()))
+
+
+def fused_phase(torch, dev, g):
+    """Four ops in one tiles pass on Slashdot: cold and warm against the
+    census-only plan, every op against its check, the raw vector against
+    ``"search"``, one CSR launch per chunk and one copy per run; a plan
+    without the census launches no census kernel and builds no flags; a
+    profiled warm run's device time by group."""
+    import numpy as np
+
+    from repro_torch.engine import EngineConfig, compile, get_op
+    from repro_torch.engine import plan as tplan
+    from repro_torch.kernels.triad_census import census_csr
+
+    cfg = EngineConfig(backend="tiles", device=dev)
+    census = compile(g, ("triad_census",), cfg)
+    raw_census = census.run_raw(g)
+    census_chunks = census.stats["chunks"] // census.stats["runs"]
+    census_csr.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan = compile(g, FUSED_OPS, cfg)
+    raw_cold = plan.run_raw(g)
+    cold_s = time.perf_counter() - t0
+    launches = census_csr.launches
+    check(launches == plan.stats["chunks"] == census_chunks
+          and plan.stats["host_syncs"] == 1,
+          f"fused cold run: {launches} launches, {plan.stats}, census "
+          f"plan {census_chunks} chunks")
+    raws = []
+    census_s, fused_s = warm_times(torch, [
+        lambda: census.run_raw(g), lambda: raws.append(plan.run_raw(g))], 3)
+    check(plan.stats["host_syncs"] == plan.stats["runs"] == 4
+          and census_csr.launches == 4 * launches + 3 * census_chunks,
+          f"fused warm runs: {plan.stats}, {census_csr.launches} launches")
+    check(all(np.array_equal(r, raw_cold) for r in raws), "fused cold != warm")
+    lay = plan.layout
+    res = lay.finalize(raw_cold, g)
+    check(np.array_equal(raw_cold[lay.slices["triad_census"]], raw_census),
+          "fused census bins != census-only bins")
+    check(res["triadic_profile"]
+          == get_op("triadic_profile").finalize(raw_census, g),
+          "triadic_profile disagrees with the census bins")
+    check(tuple(res["dyad_census"]) == host_dyad_census(g),
+          f"dyad census {res['dyad_census']} != {host_dyad_census(g)}")
+    want = get_op("degree_stats").reference(g)
+    check(all(np.array_equal(a, b) for a, b in zip(res["degree_stats"], want)),
+          f"degree stats {res['degree_stats']} != {want}")
+    t0 = time.perf_counter()
+    raw_search = compile(g, FUSED_OPS, EngineConfig(
+        backend="search", device=dev)).run_raw(g)
+    search_s = time.perf_counter() - t0
+    check(np.array_equal(raw_search, raw_cold),
+          f"fused tiles {raw_cold.tolist()} != search {raw_search.tolist()}")
+
+    flags = []
+    build_flags = tplan.build_arc_flags_device
+
+    def counted_flags(*args, **kwargs):
+        flags.append(1)
+        return build_flags(*args, **kwargs)
+
+    tplan.build_arc_flags_device = counted_flags
+    try:
+        census_csr.launches = 0
+        rest = compile(g, ("dyad_census", "degree_stats"), cfg)
+        raw_rest = rest.run_raw(g)
+    finally:
+        tplan.build_arc_flags_device = build_flags
+    check(census_csr.launches == 0 and not flags
+          and np.array_equal(raw_rest, raw_cold[16:]),
+          f"census-free plan: {census_csr.launches} census launches, "
+          f"{len(flags)} flag builds")
+    rest_s = warm_times(torch, [lambda: rest.run_raw(g)], 2)[0]
+
+    labelled, undo = labelled_plan(plan)
+    try:
+        labelled.run_raw(g)
+        profiled = []
+        split = group_split(torch, lambda: profiled.append(
+            labelled.run_raw(g)))
+    finally:
+        undo()
+    check(np.array_equal(profiled[0], raw_cold), "profiled fused run")
+    emit("fused", graph="slashdot", ops=list(FUSED_OPS), cold_s=cold_s,
+         warm_s=fused_s, census_warm_s=census_s,
+         warm_over_census=float(np.median(fused_s) / np.median(census_s)),
+         census_free_warm_s=rest_s, launches=launches,
+         chunks=plan.stats["chunks"] // plan.stats["runs"],
+         host_syncs_per_run=1, search_s=search_s,
+         bit_identical_to_search=True, census_free_launches=0,
+         census_free_flag_builds=0, dyad_census=list(res["dyad_census"]),
+         triadic_profile=list(res["triadic_profile"]), **split)
+    return launches
+
+
+def fleet_phase(torch, dev):
+    """The census service over two fleets, checked against single runs,
+    ``"search"`` and C(n, 3); one copy per batch, one CSR launch per
+    chunk, input order from ``run_fleet``; a batch with a poisoned member
+    completes its 7 peers.  Returns each timed fleet's census_csr
+    launches."""
+    import numpy as np
+
+    from repro_torch.core import generators
+    from repro_torch.engine import (EngineConfig, InjectedFault, compile,
+                                    poison, unpoison)
+    from repro_torch.kernels.triad_census import census_csr
+    from repro_torch.serve import CensusService, ServiceConfig
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:  # numpy sorts
+        rmats = list(pool.map(lambda s: generators.rmat(
+            14, edge_factor=8, seed=s, device=dev), range(64)))
+        ers = list(pool.map(lambda s: generators.erdos_renyi(
+            16384, 131072, seed=s, device=dev), range(16)))
+        eatsr = list(pool.map(lambda s: generators.paper_profile(
+            "eatSR", scale_down=1.0, seed=s, device=dev), range(4)))
+    mixed = rmats[:32] + ers + eatsr
+    mixed = [mixed[i] for i in np.random.default_rng(0).permutation(
+        len(mixed))]
+    emit("fleet_graphs", seconds=time.perf_counter() - t0,
+         rmat_dyads=[g.n_dyads for g in rmats[:4]],
+         er_dyads=[g.n_dyads for g in ers[:4]],
+         eatsr=dict(n=eatsr[0].n, dyads=eatsr[0].n_dyads,
+                    max_deg=eatsr[0].max_deg))
+    cfg = EngineConfig(backend="tiles", device=dev)
+    scfg = ServiceConfig(max_batch=8, max_wait_requests=16, census=cfg)
+    same_ops = [FLEET_OPS if i % 4 == 3 else ("triad_census",)
+                for i in range(len(rmats))]
+    launches = {}
+
+    def drive(fleet, ops):
+        """Submit the fleet, poll as it goes, flush; (completions by id,
+        service, seconds)."""
+        svc = CensusService(scfg)
+        done = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if ops is None:
+            out = svc.run_fleet(fleet)
+            done = dict(enumerate(out))
+        else:
+            for g, o in zip(fleet, ops):
+                svc.submit(g, o)
+                done.update((c.request_id, c) for c in svc.poll())
+            done.update((c.request_id, c) for c in svc.flush())
+        return done, svc, time.perf_counter() - t0
+
+    def census_of(result):
+        return result["triad_census"] if isinstance(result, dict) else result
+
+    for name, fleet, ops in (("same_bucket", rmats, same_ops),
+                             ("mixed", mixed, None)):
+        drive(fleet, ops)  # plans made, kernels warm
+        census_csr.launches = 0
+        done, svc, fleet_s = drive(fleet, ops)
+        fleet_launches = launches[name] = census_csr.launches
+        st = svc.stats()
+        chunks = sum(b["chunks"] for b in st["buckets"].values())
+        check(fleet_launches == chunks > 0,
+              f"{name}: {fleet_launches} census launches, {chunks} chunks")
+        check(all(b["host_syncs"] == b["batches"]
+                  for b in st["buckets"].values()),
+              f"{name}: host syncs per batch {st['buckets']}")
+        # the single-run baseline: one warm plan.run per request
+        req_ops = ops or [("triad_census",)] * len(fleet)
+        singles = []
+        warm_times(torch, [lambda: singles.extend(
+            compile(g, o, cfg).run(g) for g, o in zip(fleet, req_ops))], 1)
+        singles.clear()
+        census_csr.launches = 0
+        single_s = warm_times(torch, [lambda: singles.extend(
+            compile(g, o, cfg).run(g) for g, o in zip(fleet, req_ops))], 1)[0]
+        searched = 0
+        for i, (g, o, single) in enumerate(zip(fleet, req_ops, singles)):
+            got = done[i] if ops is None else done[i].result
+            if ops is not None:
+                check(done[i].error is None and done[i].ops == o,
+                      f"{name} request {i}: {done[i].error} {done[i].ops}")
+                single = single if len(o) > 1 else single[o[0]]
+            else:
+                single = single["triad_census"]
+            check(np.array_equal(census_of(got).counts,
+                                 census_of(single).counts)
+                  and census_of(got).total == c3(g.n),
+                  f"{name} request {i}: census != single run or C(n, 3)")
+            if isinstance(got, dict):
+                check(all(np.array_equal(a, b) for a, b in zip(
+                    got["degree_stats"], single["degree_stats"])),
+                    f"{name} request {i}: degree stats != single run")
+            if i % 8 == 0:
+                search = compile(g, o, EngineConfig(
+                    backend="search", device=dev)).run(g)
+                check(np.array_equal(census_of(got).counts,
+                                     search["triad_census"].counts),
+                      f"{name} request {i}: tiles != search")
+                searched += 1
+        occ = [b["occupancy"] for b in st["buckets"].values()]
+        emit("fleet", fleet=name, requests=len(fleet), seconds=fleet_s,
+             requests_per_s=len(fleet) / fleet_s, batches=st["batches"],
+             mean_batch=st["mean_batch"], mean_occupancy=float(np.mean(occ)),
+             buckets=len(st["buckets"]),
+             syncs_per_request=sum(b["host_syncs"] for b in
+                                   st["buckets"].values()) / len(fleet),
+             census_launches=fleet_launches, chunks=chunks,
+             single_run_s=single_s[0],
+             single_run_requests_per_s=len(fleet) / single_s[0],
+             checked_against_search=searched, input_order=ops is None)
+
+    # where a same-bucket fleet's time goes: its first 16 requests
+    split = device_split(torch, lambda: drive(rmats[:16], same_ops[:16]))
+    emit("fleet_profile", fleet="same_bucket", requests=16, **{
+        k: split[k] for k in ("wall_ms", "device_busy_ms",
+                              "device_idle_share", "kernel_launches")},
+        census_csr_ms=sum(t["ms"] for t in split["top"]
+                          if "census_csr" in t["kernel"]),
+        top=split["top"][:6], host_top=split["host_top"][:6])
+
+    # a batch with a poisoned member: its 7 peers complete
+    bad = rmats[3]
+    poison(bad)
+    try:
+        svc = CensusService(scfg)
+        census_csr.launches = 0
+        ids = [svc.submit(g) for g in rmats[:8]]
+        done = {c.request_id: c for c in svc.poll() + svc.flush()}
+    finally:
+        unpoison(bad)
+    st = svc.stats()
+    check(sorted(done) == ids and isinstance(done[3].error, InjectedFault)
+          and done[3].result is None, f"poisoned member: {done[3]}")
+    for i in (0, 1, 2, 4, 5, 6, 7):
+        check(done[i].error is None and np.array_equal(
+            done[i].result.counts, compile(rmats[i], "triad_census",
+                                           cfg).run(rmats[i])[
+                "triad_census"].counts), f"poisoned batch peer {i}")
+    health = st["health"]
+    check(health["poisoned"] == 1 and health["batch_failures"] == 1,
+          f"poisoned batch health {health}")
+    emit("fleet_poisoned", batch=8, completed=7, failed=1,
+         error=type(done[3].error).__name__, health=health)
+    return launches
+
+
+def footprint_delta(g, k, rng):
+    """k existing arcs removed and k random arcs added."""
+    import numpy as np
+
+    from repro_torch.core.delta import GraphDelta
+    from repro_torch.core.graph import arcs_host
+
+    src, dst = arcs_host(g)
+    sel = rng.choice(g.m, size=min(k, g.m), replace=False)
+    return GraphDelta(edges_added=rng.integers(0, g.n, size=(k, 2)),
+                      edges_removed=np.stack([src[sel], dst[sel]], 1))
+
+
+def session_phase(torch, dev, g):
+    """Deltas on Slashdot: ``apply_delta`` at each footprint (threshold
+    1.0) against the full recompute on the card, timed apart from the
+    host's rebuild; then a subscribed session streaming 8 mutations of
+    k = 4 and one of k = 1024 at the default threshold.  Returns the
+    census_csr launches of one delta application at each k, and of the
+    whole stream."""
+    import numpy as np
+
+    from repro_torch.core.delta import affected_dyads, apply_delta_csr
+    from repro_torch.engine import (EngineConfig, compile,
+                                    delta_correction)
+    from repro_torch.kernels.triad_census import census_csr
+    from repro_torch.serve import CensusService, ServiceConfig
+
+    cfg = EngineConfig(backend="tiles", device=dev, delta_threshold=1.0)
+    plan = compile(g, ("triad_census",), cfg)
+    raw = plan.run_raw(g)
+    rng = np.random.default_rng(0)
+    launches = {}
+    for k in FOOTPRINTS:
+        d = footprint_delta(g, k, rng)
+        t0 = time.perf_counter()
+        g_new = apply_delta_csr(g, d)
+        rebuild_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        old, new = affected_dyads(g, d), affected_dyads(g_new, d)
+        affected_s = time.perf_counter() - t0
+        raw_new = plan.run_raw(g_new)
+        census_csr.launches = 0
+        chunks = plan.stats["chunks"]
+        res = plan.apply_delta(g, d, raw)
+        launches[f"k{k}"] = census_csr.launches
+        check(res.mode == "delta", f"k={k}: mode {res.mode}")
+        check(census_csr.launches == plan.stats["chunks"] - chunks > 0,
+              f"k={k}: {census_csr.launches} launches in one application")
+        check(np.array_equal(res.raw, raw_new),
+              f"k={k}: delta {res.raw.tolist()} != full "
+              f"{raw_new.tolist()}")
+        check(np.array_equal(res.results["triad_census"].counts,
+                             plan.run(g_new)["triad_census"].counts)
+              and res.results["triad_census"].total == c3(g.n),
+              f"k={k}: results != plan.run(g_new)")
+        census_csr.launches = 0
+        syncs, chunks = plan.stats["host_syncs"], plan.stats["chunks"]
+        delta_s, full_s, corr_s = warm_times(torch, [
+            lambda: plan.apply_delta(g, d, raw),
+            lambda: plan.run_raw(g_new),
+            lambda: delta_correction(plan, g, g_new, d, affected_old=old,
+                                     affected_new=new)], 3)
+        check(plan.stats["host_syncs"] - syncs == 9,
+              f"k={k}: {plan.stats['host_syncs'] - syncs} syncs for 3 "
+              "deltas, 3 full runs and 3 corrections")
+        check(census_csr.launches == plan.stats["chunks"] - chunks,
+              f"k={k}: {census_csr.launches} launches for "
+              f"{plan.stats['chunks'] - chunks} chunks")
+        emit("session_delta", graph="slashdot", k=k,
+             launches=launches[f"k{k}"],
+             touched=int(len(d.touched)), affected_old=int(len(old[0])),
+             affected_new=int(len(new[0])),
+             affected_fraction=res.affected_fraction, mode=res.mode,
+             host_syncs_per_application=1, rebuild_host_s=rebuild_s,
+             affected_host_s=affected_s, device_passes_s=corr_s,
+             delta_s=delta_s, full_s=full_s,
+             delta_over_full=float(np.median(delta_s) / np.median(full_s)),
+             bit_identical_to_full=True)
+
+    ops = ("triad_census", "dyad_census")
+    scfg = EngineConfig(backend="tiles", device=dev)
+    svc = CensusService(ServiceConfig(census=scfg))
+    sid = svc.subscribe(g, ops)
+    acks = []
+    launches["stream"] = 0
+    for k in (4,) * 8 + (1024,):
+        d = footprint_delta(svc._sessions[sid].graph, k, rng)
+        census_csr.launches = 0
+        acks.append(svc.mutate(sid, d))
+        launches["stream"] += census_csr.launches
+        g_now = svc._sessions[sid].graph
+        got = svc.poll(sid)
+        want = compile(g_now, ops, scfg).run(g_now)
+        check(np.array_equal(got["triad_census"].counts,
+                             want["triad_census"].counts)
+              and got["dyad_census"] == want["dyad_census"],
+              f"session after {len(acks)} mutations != full recompute")
+    counters = svc.stats()["sessions"][sid]
+    threshold = scfg.delta_threshold
+    want_deltas = sum(a["affected_fraction"] <= threshold for a in acks)
+    check(all(a["mode"] == "delta" for a in acks[:8])
+          and counters["deltas"] == want_deltas
+          and counters["fulls"] == len(acks) - want_deltas
+          and all((a["mode"] == "delta") == (a["affected_fraction"]
+                                             <= threshold) for a in acks),
+          f"session split {counters} against {acks}")
+    emit("session_stream", ops=list(ops), threshold=threshold,
+         mutations=[dict(k=k, mode=a["mode"],
+                         affected_fraction=a["affected_fraction"])
+                    for k, a in zip((4,) * 8 + (1024,), acks)],
+         deltas=counters["deltas"], fulls=counters["fulls"])
+    svc.unsubscribe(sid)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -956,11 +1445,18 @@ def run(dev) -> int:
         plain_ms=sum(b["plain_ms"] for b in per_bucket.values()),
         bound_ms=sum(b["bound_ms"] for b in per_bucket.values()),
         bound_by="bytes", library_ms=None)
-    del g, st, plan, splan
+    del st, plan, splan
     torch.cuda.empty_cache()
 
     # 4b. the main path on Amazon at its published size ----------------------
     amazon_phase(torch, dev, rates)
+
+    # 4c.-4e. fused ops, fleet serving and deltas, through census_csr --------
+    csr_row.update(fused_launches=fused_phase(torch, dev, g),
+                   fleet_launches=fleet_phase(torch, dev),
+                   session_launches=session_phase(torch, dev, g))
+    del g
+    torch.cuda.empty_cache()
 
     # 5.-7. the flash kernel and the serving path -----------------------------
     flash = flash_kernel_phase(torch, dev)

@@ -85,6 +85,12 @@ def make_census_batch_fn(member_iters: int):
     def batch_census(g: GraphArrays, n: int, u: torch.Tensor,
                      v: torch.Tensor, valid: torch.Tensor,
                      n_cand: int) -> torch.Tensor:
+        if n_cand is None:
+            raise ValueError(
+                "the census batch program needs the ragged candidate count "
+                "n_cand, which only the search backend computes (the tiles "
+                "backend passes None outside its triad_census slice); run "
+                "this op with backend='search'")
         dev = u.device
         B = u.shape[0]
         u, v = u.long(), v.long()
@@ -220,15 +226,23 @@ def host_bucket_schedule(g: CSRGraph, ks: tuple, *, with_needs: bool = True
     from the host degree arrays, so the tiles driver lays out its chunk
     loop without reading anything back from the device.
     """
-    u, v = canonical_dyads(g)
+    need, b = dyad_buckets(g, *canonical_dyads(g), ks)
+    counts = np.bincount(b, minlength=len(ks))[: len(ks)].astype(np.int64)
+    return counts, need[np.lexsort((need, b))] if with_needs else None
+
+
+def dyad_buckets(g: CSRGraph, u: np.ndarray, v: np.ndarray, ks: tuple
+                 ) -> "tuple[np.ndarray, np.ndarray]":
+    """Host twin of :func:`sort_dyads_by_bucket`'s keys for the dyads
+    ``(u, v)`` of ``g``: each dyad's tile-width need ``max(deg u, deg v,
+    out_deg u, out_deg v)`` and its bucket, the index of the smallest
+    ``ks[i] >= need`` (``len(ks)`` when none is)."""
     deg = g.host.nbr_deg
     out_deg = np.diff(g.host.out_ptr)
     need = np.maximum(np.maximum(deg[u], deg[v]),
                       np.maximum(out_deg[u], out_deg[v])).astype(np.int64)
     ks_arr = np.asarray(ks, dtype=np.int64)
-    b = (need[:, None] > ks_arr[None, :]).sum(1)
-    counts = np.bincount(b, minlength=len(ks))[: len(ks)].astype(np.int64)
-    return counts, need[np.lexsort((need, b))] if with_needs else None
+    return need, (need[:, None] > ks_arr[None, :]).sum(1)
 
 
 def brute_force_census(g: CSRGraph) -> CensusResult:

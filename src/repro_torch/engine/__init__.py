@@ -1,34 +1,54 @@
-"""One front door for the port's census: config -> plan -> results.
+"""One front door for graph analytics: config -> plan -> results.
 
     from repro_torch.engine import EngineConfig, compile
 
-    plan = compile(graph, ("triad_census",), EngineConfig(backend="tiles"))
-    result = plan.run(graph)["triad_census"]
+    plan = compile(graph, ["triad_census", "dyad_census", "degree_stats"],
+                   EngineConfig(backend="tiles"))
+    results = plan.run(graph)        # {op_name: result}, one fused pass
+
+Analytics are pluggable :class:`~repro_torch.engine.ops.GraphOp`
+instances (``triad_census``, ``dyad_census``, ``degree_stats`` and
+``triadic_profile`` ship built in; :func:`register_op` adds more), and
+any number of them run in one fused pass: one traversal of the dyad
+stream, one int64 accumulator with a slice per kernel, one device→host
+copy.  ``Plan.run_batch`` runs B same-bucket graphs with one copy for the
+batch (:class:`repro_torch.serve.CensusService` builds fleet serving on
+it), and ``Plan.apply_delta`` advances a graph's bins by one
+:class:`GraphDelta` with work proportional to its footprint.
 
 Backends (counterparts of the JAX engine's):
 
-    "tiles"   — degree-bucketed neighbourhood tiles through the CUDA census
-                tile kernel (JAX: "pallas")
+    "tiles"   — the triad census through the CUDA CSR census kernel on
+                degree-bucketed dyads, every other op's torch program on
+                the same chunks (JAX: "pallas")
     "search"  — the binary-search batch program as torch ops (JAX: "xla")
     "auto"    — "tiles"
 
 Plans run on ``EngineConfig.device`` (``None`` = ``"cuda"``; raises
-without CUDA, never falls back to the CPU) with one device→host copy per
-run.  ``CensusConfig`` / ``compile_census`` / :class:`CensusPlan` are the
-census-era names of the same entry points.
+without CUDA, never falls back to the CPU).  ``CensusConfig`` /
+``compile_census`` / :class:`CensusPlan` are the census-era names of the
+same entry points.
 """
 from ..core.census import CensusResult
+from ..core.delta import GraphDelta, affected_dyads, apply_delta_csr
 from .config import BACKENDS, CensusConfig, EngineConfig
+from .delta import DeltaResult, delta_correction
 from .executor import ChunkTask, Executor
-from .ops import GraphOp, OpLayout, TriadCensusOp, get_op, resolve_ops
+from .faults import InjectedFault, is_poisoned, poison, unpoison
+from .ops import (DegreeStats, DyadCensus, GraphOp, OpLayout, TriadCensusOp,
+                  TriadicProfile, get_op, list_ops, register_op, resolve_ops,
+                  unregister_op)
 from .plan import (CensusPlan, GraphMeta, Plan, PlanShapeError,
                    clear_plan_cache, compile, compile_census,
                    plan_cache_stats, set_plan_cache_capacity)
 
 __all__ = [
     "BACKENDS", "CensusConfig", "CensusPlan", "CensusResult", "ChunkTask",
-    "EngineConfig", "Executor", "GraphMeta", "GraphOp", "OpLayout", "Plan",
-    "PlanShapeError", "TriadCensusOp", "clear_plan_cache", "compile",
-    "compile_census", "get_op", "plan_cache_stats", "resolve_ops",
-    "set_plan_cache_capacity",
+    "DegreeStats", "DeltaResult", "DyadCensus", "EngineConfig", "Executor",
+    "GraphDelta", "GraphMeta", "GraphOp", "InjectedFault", "OpLayout",
+    "Plan", "PlanShapeError", "TriadCensusOp", "TriadicProfile",
+    "affected_dyads", "apply_delta_csr", "clear_plan_cache", "compile",
+    "compile_census", "delta_correction", "get_op", "is_poisoned",
+    "list_ops", "plan_cache_stats", "poison", "register_op", "resolve_ops",
+    "set_plan_cache_capacity", "unpoison", "unregister_op",
 ]

@@ -1,13 +1,21 @@
 """Backend drivers of the census engine: ``"tiles"`` and ``"search"``.
 
 Counterpart of the ``"pallas"`` and ``"xla"`` device-resident paths of
-:mod:`repro.engine.backends`.  Both drivers keep the whole run on the
-plan's device: dyads are enumerated (and, for tiles, bucket-sorted) on
-the device, each chunk adds its partial counts into one int64 accumulator
-in place, and :func:`~repro_torch.engine.executor._acc_fetch` is the one
-device→host copy of the run.  The chunk schedules are derived on the host
-from the degree arrays the graph already holds, so no control value is
-ever read back from the card.
+:mod:`repro.engine.backends` and of the subset passes of
+:mod:`repro.engine.delta`.  Every driver keeps its work on the plan's
+device: dyads are enumerated (and, for the census on tiles,
+bucket-sorted) on the device, each chunk adds its partial counts into an
+int64 accumulator in place, and
+:func:`~repro_torch.engine.executor._acc_fetch` is the one device→host
+copy of a run, a batch or a delta correction.  The once contributions
+(vertex-space ops) are folded into the accumulator once per graph pass,
+before its chunks.  The chunk schedules are derived on the host from the
+degree arrays the graph already holds, so no control value is ever read
+back from the card.
+
+A *pass* adds one graph's bins into an accumulator row: the full passes
+(:func:`search_pass`, :func:`tiles_pass`) walk every dyad, the subset
+passes (:func:`subset_search`, :func:`subset_tiles`) a given dyad list.
 """
 from __future__ import annotations
 
@@ -17,12 +25,15 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..core.census import (canonical_dyads, enumerate_dyads_device,
-                           host_bucket_schedule, sort_dyads_by_bucket)
+from ..core.census import (canonical_dyads, dyad_buckets,
+                           enumerate_dyads_device, host_bucket_schedule,
+                           sort_dyads_by_bucket)
 from ..core.graph import CSRGraph, GraphArrays
 from ..kernels.ops import TILE_NAMES, gather_tiles_device
 from ..kernels.triad_census import SENTINEL, census_csr
 from .executor import ChunkTask, _acc_fetch
+
+CENSUS = "triad_census"
 
 
 def _memo_tasks(plan, g: CSRGraph, key, build) -> "list[ChunkTask]":
@@ -38,6 +49,22 @@ def _memo_tasks(plan, g: CSRGraph, key, build) -> "list[ChunkTask]":
         plan._task_memo.pop(next(iter(plan._task_memo)))
     plan._task_memo[full_key] = (weakref.ref(g), tasks)
     return tasks
+
+
+def _fold_once(plan, acc: torch.Tensor, arrays: GraphArrays, n: int) -> None:
+    """Add the plan's once contributions for one graph into ``acc``."""
+    if plan._once is not None:
+        acc += plan._once(arrays, n)
+
+
+def _upload_dyads(plan, u: np.ndarray, v: np.ndarray, size: int):
+    """A host dyad list on the plan's device, padded to ``size`` with the
+    inert dyad ``(0, 1)``."""
+    du = np.zeros(size, dtype=np.int32)
+    dv = np.ones(size, dtype=np.int32)
+    du[: len(u)], dv[: len(v)] = u, v
+    return (torch.from_numpy(du).to(plan.device),
+            torch.from_numpy(dv).to(plan.device))
 
 
 # ----------------------------------------------------------------------------
@@ -60,49 +87,57 @@ def make_search_chunk_fn(layout):
     return search_chunk
 
 
-def _dyad_tasks(plan, g: CSRGraph) -> "list[ChunkTask]":
-    """Fixed-size chunks over the canonical dyad stream; each task's key is
+def _search_tasks(g: CSRGraph, u: np.ndarray, v: np.ndarray,
+                  chunk: int) -> "list[ChunkTask]":
+    """Fixed-size chunks over the dyad list ``(u, v)``; each task's key is
     its ragged candidate count, ``sum(deg(u) + deg(v))`` over its dyads."""
-    chunk = plan.chunk
-
-    def build():
-        u, v = canonical_dyads(g)
-        deg = g.host.nbr_deg.astype(np.int64)
-        cum = np.concatenate([[0], np.cumsum(deg[u] + deg[v])])
-        spans = [(s, min(s + chunk, g.n_dyads))
-                 for s in range(0, g.n_dyads, chunk)]
-        return [ChunkTask(s, e, float(e - s), int(cum[e] - cum[s]))
-                for s, e in spans]
-
-    return _memo_tasks(plan, g, ("search", chunk), build)
+    deg = g.host.nbr_deg.astype(np.int64)
+    cum = np.concatenate([[0], np.cumsum(deg[u] + deg[v])])
+    spans = [(s, min(s + chunk, len(u))) for s in range(0, len(u), chunk)]
+    return [ChunkTask(s, e, float(e - s), int(cum[e] - cum[s]))
+            for s, e in spans]
 
 
-def run_search(plan, g: CSRGraph) -> np.ndarray:
-    """Full pass on the search backend; returns the raw int64 bins."""
-    if g.n_dyads == 0:
-        return np.zeros(plan.layout.total_bins, dtype=np.int64)
-    acc = torch.zeros(plan.layout.total_bins, dtype=torch.int64,
-                      device=plan.device)
+def search_pass(plan, g: CSRGraph, acc: torch.Tensor) -> None:
+    """Add ``g``'s full search-backend bins into ``acc`` (graph has dyads)."""
     arrays = plan.padded_arrays(g)
+    _fold_once(plan, acc, arrays, g.n)
     du, dv = enumerate_dyads_device(arrays.nbr_ptr, arrays.nbr_idx, g.m_nbr,
                                     out_size=plan.dyad_pad)
+    tasks = _memo_tasks(plan, g, ("search", plan.chunk), lambda: _search_tasks(
+        g, *canonical_dyads(g), plan.chunk))
     plan.executor.run(
-        _dyad_tasks(plan, g),
-        lambda t: plan._fn(arrays, g.n, du, dv, t, acc, chunk=plan.chunk))
-    return _acc_fetch(plan, acc)
+        tasks, lambda t: plan._fn(arrays, g.n, du, dv, t, acc,
+                                  chunk=plan.chunk))
+
+
+def subset_search(plan, g: CSRGraph, u: np.ndarray, v: np.ndarray,
+                  acc: torch.Tensor) -> None:
+    """Add the search-backend bins of ``g``'s dyads ``(u, v)`` (and ``g``'s
+    once contributions) into ``acc``; each task's candidate count is
+    summed on the host from the list."""
+    arrays = plan.padded_arrays(g)
+    _fold_once(plan, acc, arrays, g.n)
+    if not len(u):
+        return
+    chunk = plan.chunk
+    du, dv = _upload_dyads(plan, u, v, -(-len(u) // chunk) * chunk)
+    plan.executor.run(
+        _search_tasks(g, u, v, chunk),
+        lambda t: plan._fn(arrays, g.n, du, dv, t, acc, chunk=chunk))
 
 
 # ----------------------------------------------------------------------------
-# tiles: degree-bucketed dyads through the CUDA census kernel, which reads
-# the CSR rows directly (the six-tile gather is off this path)
+# tiles: the triad census through the CUDA CSR census kernel on
+# degree-bucketed dyads, every other op's batch kernel on the same chunk
 # ----------------------------------------------------------------------------
 
 
 def chunk_dyads(su, sv, task, chunk: int):
-    """``chunk`` dyads of the bucket-sorted stream from ``task.start``;
-    lanes at or past ``task.end`` become SENTINEL padding.  Returns
-    ``(u, v, valid)``; ``valid`` is None for a full chunk, whose dyads
-    are views of the stream."""
+    """``chunk`` dyads of the stream from ``task.start``; lanes at or past
+    ``task.end`` become SENTINEL padding.  Returns ``(u, v, valid)``;
+    ``valid`` is None for a full chunk, whose dyads are views of the
+    stream."""
     stop = task.start + chunk
     if stop <= task.end:
         return su[task.start: stop], sv[task.start: stop], None
@@ -129,48 +164,76 @@ def chunk_tile_inputs(arrays, su, sv, task, chunk: int):
 
 def make_tiles_chunk_fn(layout):
     """Chunk unit ``(arrays, n, su, sv, task, acc; chunk, block)`` of the
-    tiles backend: run the CSR census kernel on the task's dyads
-    (:func:`chunk_dyads`), its warp or CTA mapping chosen by the bucket
-    width ``task.key``, and add its (chunk / block, 16) partials into
-    ``acc``."""
-    if layout.keys != ["triad_census"]:
-        raise ValueError(f"the tiles backend runs the triad census kernel "
-                         f"only; got kernels {layout.keys} (use "
-                         f"backend='search')")
+    tiles backend, over the task's dyads (:func:`chunk_dyads`):
+
+    * the CSR census kernel, its warp or CTA mapping chosen by the bucket
+      width ``task.key``, adds its (chunk / block, 16) partials into the
+      ``triad_census`` slice of ``acc``;
+    * every other kernel (``layout.batch_kernel(skip=("triad_census",))``)
+      runs on the same dyads, padded lanes remapped to the inert ``(0,
+      1)`` dyad and masked by ``valid``, with ``n_cand=None``."""
+    census_sl = layout.slices.get(CENSUS)
+    rest = (layout.batch_kernel(skip=(CENSUS,))
+            if layout.has_batch(skip=(CENSUS,)) else None)
 
     def tiles_chunk(arrays, n, su, sv, task, acc, *, chunk: int,
                     block: int):
-        u, v, _ = chunk_dyads(su, sv, task, chunk)
-        acc += census_csr(u, v, n, arrays, k=task.key, block=block).sum(
-            0, dtype=torch.int64)
+        u, v, valid = chunk_dyads(su, sv, task, chunk)
+        if rest is not None:
+            if valid is None:
+                ru, rv = u, v
+                rvalid = torch.ones(chunk, dtype=torch.bool, device=u.device)
+            else:
+                ru, rv, rvalid = (torch.where(valid, u, 0),
+                                  torch.where(valid, v, 1), valid)
+            acc += rest(arrays, n, ru, rv, rvalid, None)
+        if census_sl is not None:
+            acc[census_sl].add_(census_csr(u, v, n, arrays, k=task.key,
+                                           block=block).sum(
+                0, dtype=torch.int64))
 
     return tiles_chunk
 
 
-def _tiles_bucket_tasks(plan, g: CSRGraph, ks: tuple,
-                        chunk: int) -> "list[ChunkTask]":
-    """Per-bucket fixed-size chunks over the bucket-sorted dyad stream;
-    each task's key is its bucket's width ``K``, which bounds every row
-    of its dyads."""
+def tiles_geometry(plan) -> "tuple[int, int, tuple]":
+    """``(block, chunk, ks)`` of the plan's tiles passes: the chunk is a
+    whole number of blocks, and the bucket widths are the configured
+    buckets capped at the plan's width ``k``, which is always the top
+    bucket."""
+    block = plan.config.resolve_block()
+    chunk = max(block, (plan.chunk // block) * block)
+    kmax = max(plan.meta.k, 1)
+    ks = tuple(sorted({min(max(int(k), 1), kmax)
+                       for k in plan.config.buckets} | {kmax}))
+    return block, chunk, ks
 
-    def build():
-        counts, _ = host_bucket_schedule(g, ks, with_needs=False)
-        tasks: list = []
-        offset = 0
-        for K, c in zip(ks, counts.tolist()):
-            tasks += [ChunkTask(s, offset + c,
-                                float(K * min(chunk, offset + c - s)), K)
-                      for s in range(offset, offset + c, chunk)]
-            offset += c
-        return tasks
 
-    return _memo_tasks(plan, g, ("tiles", ks, chunk), build)
+def _bucket_tasks(ks: tuple, counts, chunk: int) -> "list[ChunkTask]":
+    """Per-bucket fixed-size chunks over a bucket-sorted dyad stream whose
+    buckets hold ``counts`` dyads; each task's key is its bucket's width
+    ``K``, which bounds every row of its dyads."""
+    tasks: list = []
+    offset = 0
+    for K, c in zip(ks, (int(c) for c in counts)):
+        tasks += [ChunkTask(s, offset + c,
+                            float(K * min(chunk, offset + c - s)), K)
+                  for s in range(offset, offset + c, chunk)]
+        offset += c
+    return tasks
+
+
+def _flat_tasks(D: int, chunk: int, K: int) -> "list[ChunkTask]":
+    """Fixed-size chunks over an unsorted dyad stream of ``D`` dyads, keyed
+    by the top width ``K`` (the tiles plans without the census)."""
+    return [ChunkTask(s, min(s + chunk, D), float(min(s + chunk, D) - s), K)
+            for s in range(0, D, chunk)]
 
 
 class TilesStream(NamedTuple):
-    """Everything a tiles run dispatches over: the padded device arrays
-    (with the arc flags and range counts), the bucket-sorted dyad stream,
-    the task list, and the chunk and block sizes."""
+    """Everything a tiles pass dispatches over: the padded device arrays
+    (with the arc flags and range counts when the plan runs the census),
+    the dyad stream (bucket-sorted for the census), the task list, and
+    the chunk and block sizes."""
 
     arrays: GraphArrays
     su: torch.Tensor
@@ -182,34 +245,106 @@ class TilesStream(NamedTuple):
 
 def tiles_stream(plan, g: CSRGraph) -> TilesStream:
     """Build the tiles backend's device stream for ``g`` (graph has
-    dyads).  Bucket widths are the configured buckets capped at the plan's
-    width ``k``, which is always the top bucket."""
-    block = plan.config.resolve_block()
-    chunk = max(block, (plan.chunk // block) * block)
-    kmax = max(plan.meta.k, 1)
-    ks = tuple(sorted({min(max(int(k), 1), kmax)
-                       for k in plan.config.buckets} | {kmax}))
-    arrays = plan.padded_arrays(g, with_flags=True)
+    dyads).  A plan without the census builds no arc flags and sorts
+    nothing: it streams the enumerated dyads in fixed chunks."""
+    block, chunk, ks = tiles_geometry(plan)
+    census = CENSUS in plan.layout.slices
+    arrays = plan.padded_arrays(g, with_flags=census)
     du, dv = enumerate_dyads_device(arrays.nbr_ptr, arrays.nbr_idx, g.m_nbr,
                                     out_size=plan.dyad_pad)
+    if not census:
+        return TilesStream(arrays, du, dv,
+                           _flat_tasks(g.n_dyads, chunk, ks[-1]), chunk,
+                           block)
     su, sv, _ = sort_dyads_by_bucket(arrays.nbr_deg, arrays.out_ptr, du, dv,
                                      g.n_dyads, ks=ks)
-    return TilesStream(arrays, su, sv,
-                       _tiles_bucket_tasks(plan, g, ks, chunk), chunk, block)
+    tasks = _memo_tasks(plan, g, ("tiles", ks, chunk), lambda: _bucket_tasks(
+        ks, host_bucket_schedule(g, ks, with_needs=False)[0], chunk))
+    return TilesStream(arrays, su, sv, tasks, chunk, block)
 
 
-def run_tiles(plan, g: CSRGraph) -> np.ndarray:
-    """Full pass on the tiles backend; returns the raw int64 bins."""
-    if g.n_dyads == 0:
-        return np.zeros(plan.layout.total_bins, dtype=np.int64)
-    st = tiles_stream(plan, g)
-    acc = torch.zeros(plan.layout.total_bins, dtype=torch.int64,
-                      device=plan.device)
+def _dispatch_tiles(plan, g: CSRGraph, st: TilesStream,
+                    acc: torch.Tensor) -> None:
+    _fold_once(plan, acc, st.arrays, g.n)
     plan.executor.run(
         st.tasks, lambda t: plan._fn(st.arrays, g.n, st.su, st.sv, t, acc,
                                      chunk=st.chunk, block=st.block))
+
+
+def tiles_pass(plan, g: CSRGraph, acc: torch.Tensor) -> None:
+    """Add ``g``'s full tiles-backend bins into ``acc`` (graph has dyads)."""
+    _dispatch_tiles(plan, g, tiles_stream(plan, g), acc)
+
+
+def subset_tiles(plan, g: CSRGraph, u: np.ndarray, v: np.ndarray,
+                 acc: torch.Tensor) -> None:
+    """Add the tiles-backend bins of ``g``'s dyads ``(u, v)`` (and ``g``'s
+    once contributions) into ``acc``.  For the census the dyads are
+    sorted on the host by (bucket, need), as the full pass sorts on the
+    device, so every task's ``K`` is its bucket's width; the sorted list
+    is uploaded once."""
+    block, chunk, ks = tiles_geometry(plan)
+    census = CENSUS in plan.layout.slices
+    arrays = plan.padded_arrays(g, with_flags=census)
+    if not len(u):
+        _fold_once(plan, acc, arrays, g.n)
+        return
+    if census:
+        need, b = dyad_buckets(g, u, v, ks)
+        order = np.lexsort((need, b))
+        u, v = u[order], v[order]
+        tasks = _bucket_tasks(
+            ks, np.bincount(b, minlength=len(ks))[: len(ks)], chunk)
+    else:
+        tasks = _flat_tasks(len(u), chunk, ks[-1])
+    su, sv = _upload_dyads(plan, u, v, len(u))
+    _dispatch_tiles(plan, g, TilesStream(arrays, su, sv, tasks, chunk, block),
+                    acc)
+
+
+# ----------------------------------------------------------------------------
+# drivers: one run, a batch, a delta correction — one counted copy each
+# ----------------------------------------------------------------------------
+
+#: backend name -> full pass, and -> subset pass.
+PASSES = {"tiles": tiles_pass, "search": search_pass}
+SUBSET_PASSES = {"tiles": subset_tiles, "search": subset_search}
+
+
+def _zeros(plan, *shape) -> torch.Tensor:
+    return torch.zeros(*shape, plan.layout.total_bins, dtype=torch.int64,
+                       device=plan.device)
+
+
+def run_full(plan, g: CSRGraph) -> np.ndarray:
+    """Full pass of ``g``; returns the raw int64 bins.  An arc-free graph
+    runs nothing and returns zeros (the ops' finalize covers it)."""
+    if g.n_dyads == 0:
+        return np.zeros(plan.layout.total_bins, dtype=np.int64)
+    acc = _zeros(plan)
+    PASSES[plan.backend](plan, g, acc)
     return _acc_fetch(plan, acc)
 
 
-#: backend name -> full-pass driver.
-RUNNERS = {"tiles": run_tiles, "search": run_search}
+def run_batch(plan, graphs) -> np.ndarray:
+    """Full passes of B graphs into one ``(B, total_bins)`` accumulator,
+    each member's chunks into its own row, and one copy for the batch.
+    Returns the ``(B, total_bins)`` raw int64 bins."""
+    acc = _zeros(plan, len(graphs))
+    for row, g in zip(acc, graphs):
+        if g.n_dyads:
+            PASSES[plan.backend](plan, g, row)
+    return _acc_fetch(plan, acc)
+
+
+def run_subsets(plan, g_old: CSRGraph, old, g_new: CSRGraph,
+                new) -> np.ndarray:
+    """Exact ``raw(g_new) - raw(g_old)`` over the dyad lists ``old`` of
+    ``g_old`` and ``new`` of ``g_new``: two subset passes, their
+    difference taken on the device in int64 (it may be negative), one
+    copy."""
+    acc = _zeros(plan, 2)
+    for row, g, (u, v) in ((acc[0], g_old, old), (acc[1], g_new, new)):
+        if g.n_dyads:
+            SUBSET_PASSES[plan.backend](plan, g, u, v, row)
+    return _acc_fetch(plan, acc[1] - acc[0])

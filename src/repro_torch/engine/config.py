@@ -1,6 +1,6 @@
 """Engine configuration: the knobs of the port's single-device census path.
 
-Counterpart of :mod:`repro.engine.config` for this slice of the port.
+Counterpart of :mod:`repro.engine.config` for the port's slices so far.
 One frozen, hashable dataclass, :class:`EngineConfig`; it is part of the
 plan-cache key.  :data:`CensusConfig` is the same class under its
 census-era name.
@@ -48,6 +48,13 @@ class EngineConfig:
             dyad-count bucket.
         pipeline_depth: max chunks in flight on the card before the host
             waits (``1`` = lockstep, ``2`` = double buffering).
+        delta_threshold: incremental-census cutoff, in ``(0, 1]``.
+            ``Plan.apply_delta`` runs the affected-subset correction only
+            while the mutation footprint (affected dyads over the larger
+            dyad stream) stays at or below it, else a full pass.  The
+            default ``0.5`` is the delta pass's break-even: it walks the
+            affected set twice, once per graph version.  ``1.0`` always
+            prefers the delta path.
     """
 
     backend: str = "auto"
@@ -58,6 +65,7 @@ class EngineConfig:
     buckets: Tuple[int, ...] = (32, 128, 512)
     chunk_dyads: Optional[int] = None
     pipeline_depth: int = 2
+    delta_threshold: float = 0.5
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
@@ -84,6 +92,14 @@ class EngineConfig:
         if self.pipeline_depth < 1:
             raise ValueError(f"pipeline_depth must be >= 1 (got "
                              f"{self.pipeline_depth})")
+        if not 0.0 < float(self.delta_threshold) <= 1.0:
+            raise ValueError(
+                f"delta_threshold must be in (0, 1] (got "
+                f"{self.delta_threshold}); it is the affected-dyad "
+                "fraction above which apply_delta falls back to a full "
+                "recompute — 1.0 always prefers the delta path")
+        object.__setattr__(self, "delta_threshold",
+                           float(self.delta_threshold))
 
     def resolve_backend(self) -> str:
         """Pin ``"auto"`` to a concrete backend: the tiles path."""

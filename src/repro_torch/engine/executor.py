@@ -33,7 +33,9 @@ class ChunkTask(NamedTuple):
 
 
 def _acc_fetch(plan, acc: torch.Tensor) -> np.ndarray:
-    """THE device→host copy of a run (counted)."""
+    """THE device→host copy of a run, a batch or a delta correction
+    (counted once): ``acc`` is ``(total_bins,)``, or ``(B, total_bins)``
+    for a batch of B graphs."""
     plan.stats["host_syncs"] += 1
     return acc.cpu().numpy().astype(np.int64)
 

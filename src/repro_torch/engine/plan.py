@@ -3,11 +3,13 @@
 Counterpart of :mod:`repro.engine.plan` for the port's single-device
 slice.  ``compile(graph_meta, ops, config) -> Plan``: a :class:`Plan`
 owns what runs reuse — the padded-shape buckets, the chunk geometry, the
-chunk unit of its backend, and a per-graph memo of host-derived chunk
-schedules — and runs the census in one pass with one device→host copy
-(``stats["host_syncs"]``).  Plans are cached in a bounded LRU keyed on
-bucketized graph metadata, the ops and the config, so same-shape graphs
-share one plan.
+fused chunk unit of its backend, and a per-graph memo of host-derived
+chunk schedules — and runs any number of ops in one pass with one
+device→host copy (``stats["host_syncs"]``): :meth:`Plan.run` for one
+graph, :meth:`Plan.run_batch` for B same-bucket graphs, and
+:meth:`Plan.apply_delta` to advance a graph's bins by one mutation.
+Plans are cached in a bounded LRU keyed on bucketized graph metadata, the
+ops and the config, so same-shape graphs share one plan.
 
 Unlike the JAX engine, a failing backend is not demoted to another one:
 there is no degradation ladder in the port, and an error surfaces.
@@ -27,7 +29,9 @@ from ..kernels.ops import (MAX_PACKED_DEGREE, build_arc_flags_device,
                            build_in_csr_device)
 from . import backends
 from .config import EngineConfig
+from .delta import run_delta
 from .executor import Executor
+from .faults import check_poisoned
 from .ops import OpLayout, resolve_ops
 
 __all__ = ["CensusPlan", "GraphMeta", "Plan", "PlanShapeError", "compile",
@@ -92,9 +96,12 @@ class Plan:
         # device dyad list length: whole chunks covering the dyad bucket
         self.dyad_pad = max(self.chunk,
                             -(-d_bucket // self.chunk) * self.chunk)
-        self.stats = {"runs": 0, "chunks": 0, "host_syncs": 0}
+        self.stats = {"runs": 0, "chunks": 0, "host_syncs": 0,
+                      "batch_runs": 0, "batch_graphs": 0, "delta_runs": 0,
+                      "delta_fulls": 0}
         self.executor = Executor(config, self.stats, device)
         self._task_memo: dict = {}
+        self._once = self.layout.once_kernel()
         make = {"tiles": backends.make_tiles_chunk_fn,
                 "search": backends.make_search_chunk_fn}[backend]
         self._fn = make(self.layout)
@@ -144,10 +151,55 @@ class Plan:
 
     def run_raw(self, g: CSRGraph):
         """Run the pass and return the raw int64 accumulator bins (no
-        finalize); one device→host copy."""
+        finalize); one device→host copy.  This is the state a delta stream
+        carries between mutations (:meth:`apply_delta`)."""
+        check_poisoned(g)
         self._check(g)
         self.stats["runs"] += 1
-        return backends.RUNNERS[self.backend](self, g)
+        return backends.run_full(self, g)
+
+    def run_batch(self, graphs) -> "list[dict]":
+        """Run the fused pass on B same-bucket graphs as one batch.
+
+        Every graph must pass this plan's admission check (the
+        :class:`GraphMeta` grouping a
+        :class:`repro_torch.serve.CensusService` performs); a poisoned
+        member fails the batch as a unit.  Each member's chunks add into
+        its own row of one ``(B, total_bins)`` accumulator, and the batch
+        costs **one** device→host copy.  Results equal B sequential
+        :meth:`run` calls; returns one ``{op_name: result}`` per graph, in
+        input order."""
+        graphs = list(graphs)
+        if not graphs:
+            return []
+        for g in graphs:
+            check_poisoned(g)
+            self._check(g)
+        self.stats["runs"] += len(graphs)
+        self.stats["batch_runs"] += 1
+        self.stats["batch_graphs"] += len(graphs)
+        raws = backends.run_batch(self, graphs)
+        return [self.layout.finalize(raw, g) for raw, g in zip(raws, graphs)]
+
+    def apply_delta(self, g: CSRGraph, delta, raw=None):
+        """Advance a graph's bins by one mutation batch, with work
+        proportional to the mutation's footprint.
+
+        ``g`` is the current graph, ``raw`` its raw bins (from
+        :meth:`run_raw` or the previous application's ``.raw``) and
+        ``delta`` a :class:`~repro_torch.core.delta.GraphDelta`.  Returns
+        a :class:`~repro_torch.engine.delta.DeltaResult` whose ``graph``
+        and ``raw`` seed the next application and whose ``results`` equal
+        ``plan.run(result.graph)``: the plan's own chunk units re-run on
+        the affected dyads of both graphs and the exact integer
+        difference is folded in, for one device→host copy.  Recomputes in
+        full (``mode == "full"``) when ``raw`` is None, the affected
+        fraction exceeds ``config.delta_threshold``, or an op sets
+        ``delta_local=False``.  Raises :class:`PlanShapeError` if the
+        mutated graph outgrows the plan's buckets."""
+        self._check(g)
+        self.stats["runs"] += 1
+        return run_delta(self, g, delta, raw)
 
     def census_view(self) -> "CensusPlan":
         """The census-only view of this plan."""
@@ -171,6 +223,11 @@ class CensusPlan:
     def run(self, g: CSRGraph) -> CensusResult:
         """Run the census; int64 counts of all 16 triad types."""
         return self._plan.run(g)["triad_census"]
+
+    def run_batch(self, graphs) -> "list[CensusResult]":
+        """The census of B same-bucket graphs as one batch (see
+        :meth:`Plan.run_batch`); one result per graph, in input order."""
+        return [r["triad_census"] for r in self._plan.run_batch(graphs)]
 
 
 _PLAN_CACHE: collections.OrderedDict = collections.OrderedDict()
@@ -239,7 +296,8 @@ def plan_cache_stats() -> dict:
     """Cache counters plus one entry per cached plan (LRU order): its
     bucketized ``meta``, ``backend``, ``device``, ``ops``, ``chunk``, live
     ``task_memo`` entries and execution counters (``runs``, ``chunks``,
-    ``host_syncs``)."""
+    ``host_syncs``, ``batch_runs`` / ``batch_graphs``, and ``delta_runs``
+    / ``delta_fulls``: delta applications split by path)."""
     entries = [dict(meta=dataclasses.asdict(p.meta), backend=p.backend,
                     device=str(p.device), ops=p.op_names, chunk=p.chunk,
                     task_memo=len(p._task_memo), **p.stats)

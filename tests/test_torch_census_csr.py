@@ -8,6 +8,7 @@ The JAX package is imported inside the tests that compare with it, so the
 CUDA cases also run on a machine with the card and no JAX:
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_census_csr.py``.
 """
+import dataclasses
 import re
 from pathlib import Path
 
@@ -19,6 +20,7 @@ from repro_torch.core import brute_force_census
 from repro_torch.core import census as tcensus
 from repro_torch.core import generators as tgen
 from repro_torch.core import triad_table as ttable
+from repro_torch.core.delta import GraphDelta
 from repro_torch.core.graph import from_edges
 from repro_torch.engine import EngineConfig, compile
 from repro_torch.engine import backends
@@ -248,8 +250,9 @@ def test_tiles_backend_runs_csr_kernel_once_per_chunk(monkeypatch):
     monkeypatch.setattr(backends, "census_csr", counting)
     monkeypatch.setattr(backends, "gather_tiles_device", forbidden)
     g = GRAPHS["rmat7"](device="cpu")
-    plan = compile(g, ("triad_census",), EngineConfig(
-        backend="tiles", device="cpu", chunk_dyads=64, batch=16))
+    cfg = EngineConfig(backend="tiles", device="cpu", chunk_dyads=64,
+                       batch=16)
+    plan = compile(g, ("triad_census",), cfg)
     raw = plan.run_raw(g)
     assert len(calls) == plan.stats["chunks"] > 1
     widths = {min(b, plan.meta.k) for b in plan.config.buckets} | {
@@ -258,6 +261,23 @@ def test_tiles_backend_runs_csr_kernel_once_per_chunk(monkeypatch):
     assert plan.meta.k in {k for k, _ in calls}
     counts = plan.layout.finalize(raw, g)["triad_census"].counts
     np.testing.assert_array_equal(counts, brute_force_census(g).counts)
+
+    # the same rule at the fused, batch and delta-subset call sites
+    fused = compile(g, ("triad_census", "dyad_census", "degree_stats"),
+                    dataclasses.replace(cfg, delta_threshold=1.0))
+    g2 = GRAPHS["rmat7"](device="cpu")
+    u, v = tcensus.canonical_dyads(g)
+    delta = GraphDelta(edges_removed=np.stack([u[:6], v[:6]], 1),
+                       edges_added=[(1, 90), (90, 3), (7, 8)])
+    raw = fused.run_raw(g)
+    for run in (lambda: fused.run_raw(g),
+                lambda: fused.run_batch([g, g2]),
+                lambda: fused.apply_delta(g, delta, raw).mode == "delta"):
+        calls.clear()
+        chunks = fused.stats["chunks"]
+        assert run() is not False
+        assert len(calls) == fused.stats["chunks"] - chunks > 0
+        assert all(k in widths and row <= k for k, row in calls)
 
 
 def test_cpu_path_launches_no_kernel():

@@ -175,8 +175,9 @@ def test_config_validation(bad):
 
 
 def test_tiles_backend_runs_only_the_census_kernel():
-    """A plan whose ops need another kernel cannot take the tiles path;
-    the search backend fuses it into the same pass."""
+    """On the tiles backend the census kernel fills only the census slice:
+    another op's kernel runs as its own program on the same chunks (with
+    ``n_cand=None``), fused into the pass as on the search backend."""
 
     class DyadCount(GraphOp):
         name, bins = "dyad_count", 1
@@ -188,11 +189,13 @@ def test_tiles_backend_runs_only_the_census_kernel():
             return int(raw[0])
 
     g = tgen.rmat(5, edge_factor=4, seed=0, device="cpu")
-    with pytest.raises(ValueError, match="triad census kernel only"):
-        compile(g, ("triad_census", DyadCount()),
-                EngineConfig(backend="tiles", device="cpu"))
-    res = compile(g, ("triad_census", DyadCount()),
-                  EngineConfig(backend="search", device="cpu")).run(g)
-    assert res["dyad_count"] == g.n_dyads
-    np.testing.assert_array_equal(res["triad_census"].counts,
-                                  brute_force_census(g).counts)
+    raws = {}
+    for backend in ("tiles", "search"):
+        plan = compile(g, ("triad_census", DyadCount()),
+                       EngineConfig(backend=backend, device="cpu"))
+        raws[backend] = plan.run_raw(g)
+        res = plan.layout.finalize(raws[backend], g)
+        assert res["dyad_count"] == g.n_dyads
+        np.testing.assert_array_equal(res["triad_census"].counts,
+                                      brute_force_census(g).counts)
+    np.testing.assert_array_equal(raws["tiles"], raws["search"])
