@@ -64,6 +64,32 @@ script exits non-zero and prints no result.  Phases:
              session streaming 8 mutations of k = 4 and one of k = 1024
              at the default threshold, each poll equal to a full
              recompute, the delta/full split matching the fractions.
+   faults_clean — after every normal phase (small, full, amazon, fused,
+             fleet, session, dynamic, reorder): each cached plan has all
+             six fault counters at 0 and no demotion, and each service's
+             engine recoveries are 0.
+   dynamic — Slashdot and Amazon under ``schedule="dynamic"`` on the
+             one-card pool (cost-model chunks per bucket): bins equal to
+             the static plan's, one copy and one CSR launch per task a
+             run (93 and 558 tasks), cold, warm in turns with static, a
+             profiled warm run (launches, idle share); the four ops in
+             one dynamic pass against the static fused bins.
+   reorder — Slashdot under ``reorder="degree"``, ``"bfs"``, ``"rcm"``:
+             the four ops' bins equal to the unreordered run; the host
+             permutation and relabel timed; warm census in turns with
+             the unreordered plan; the CSR kernel against its plain
+             version and CUDA-event timed on every chunk of the relabeled
+             stream, beside its bound; one ``apply_delta`` (k = 64) under
+             rcm equal to the full recompute.
+   faults  — injected ``FaultPlan``s on Slashdot, tiles: recoverable chunk
+             failures (rate 0.2, one failing attempt) under static and
+             dynamic, bit-equal with one copy and ``retries`` equal to
+             the chunks the plan selects; the only pool device lost under
+             dynamic (one ``dynamic -> static`` rung); the tiles runtime
+             failure raising by default and, with ``backend_fallback``,
+             demoted once to ``"search"`` with no census_csr launch after;
+             a dynamic service of 16 requests over 2 buckets whose
+             ``retries`` health counter equals the selected chunks.
 5. flash_kernel — the flash-attention kernel against its plain version
              (``flash_attention_ref``): bf16 at the qwen3-4b prefill shape
              (B 4, T 2048, S 2080, H 32, Hkv 8, D 128) within 2e-2, f32
@@ -86,7 +112,8 @@ script exits non-zero and prints no result.  Phases:
              flash path against the dense path (<= 1e-3), and decode
              logits against the full forward at every position (<= 1e-3).
 8. the kernels line (census_csr's row adds its launches in the fused,
-   fleet and session phases), then the result line.
+   fleet, session, dynamic, reorder and faults phases), then the result
+   line.
 
 Exits non-zero without a CUDA device.
 """
@@ -726,8 +753,13 @@ def amazon_phase(torch, dev, rates):
          search_s=search_s, search_max_memory_allocated=search_peak,
          bit_identical_to_search=True, checked_chunks=len(picked),
          counts=result.counts.tolist())
-    del g, st, plan
+    faults_clean("amazon")
+    del st
+    dynamic_launches = dynamic_phase(torch, dev, "amazon", g, plan, raw_warm)
+    faults_clean("amazon_dynamic")
+    del g, plan
     torch.cuda.empty_cache()
+    return dynamic_launches
 
 
 # the fused analytics of the fused phase, and the fleet's two-op requests
@@ -990,6 +1022,8 @@ def fleet_phase(torch, dev):
         done, svc, fleet_s = drive(fleet, ops)
         fleet_launches = launches[name] = census_csr.launches
         st = svc.stats()
+        check(all(st["health"][k] == 0 for k in ENGINE_HEALTH),
+              f"{name}: engine recoveries {st['health']}")
         chunks = sum(b["chunks"] for b in st["buckets"].values())
         check(fleet_launches == chunks > 0,
               f"{name}: {fleet_launches} census launches, {chunks} chunks")
@@ -1175,6 +1209,9 @@ def session_phase(torch, dev, g):
               and got["dyad_census"] == want["dyad_census"],
               f"session after {len(acks)} mutations != full recompute")
     counters = svc.stats()["sessions"][sid]
+    health = svc.stats()["health"]
+    check(all(health[k] == 0 for k in ENGINE_HEALTH),
+          f"session: engine recoveries {health}")
     threshold = scfg.delta_threshold
     want_deltas = sum(a["affected_fraction"] <= threshold for a in acks)
     check(all(a["mode"] == "delta" for a in acks[:8])
@@ -1189,6 +1226,345 @@ def session_phase(torch, dev, g):
                     for k, a in zip((4,) * 8 + (1024,), acks)],
          deltas=counters["deltas"], fulls=counters["fulls"])
     svc.unsubscribe(sid)
+    return launches
+
+
+# -- the execution policy: the dynamic schedule, faults, reordering ----------
+
+FAULT_COUNTERS = ("chunk_failures", "retries", "device_losses", "quarantines",
+                  "backend_fallbacks", "schedule_fallbacks")
+# the engine's recovery counters as the census service sums them
+ENGINE_HEALTH = ("retries", "quarantines", "backend_fallbacks",
+                 "schedule_fallbacks")
+REORDERS = ("degree", "bfs", "rcm")
+
+
+def faults_clean(phase):
+    """Every cached plan ends a normal phase with all six fault counters at
+    0 and no demotion: no path here ran without its kernel."""
+    from repro_torch.engine import plan_cache_stats
+
+    entries = plan_cache_stats()["entries"]
+    dirty = [(e["ops"], e["backend"], e["faults"], e["degradation"])
+             for e in entries if any(e["faults"][k] for k in FAULT_COUNTERS)
+             or e["degradation"]]
+    check(not dirty, f"{phase}: plans with faults or demotions {dirty}")
+    emit("faults_clean", of=phase, plans=len(entries))
+
+
+def dynamic_tasks(plan, g):
+    """The dynamic schedule's tiles tasks of ``g``, derived on the host as
+    the engine derives them."""
+    from repro_torch.core.census import host_bucket_schedule
+    from repro_torch.engine.backends import _bucket_tasks, tiles_geometry
+
+    _, chunk, ks = tiles_geometry(plan)
+    counts, need = host_bucket_schedule(g, ks, with_needs=True)
+    return _bucket_tasks(ks, counts, chunk, need)
+
+
+def dynamic_phase(torch, dev, name, g, static, raw_static):
+    """``schedule="dynamic"`` on the one-card pool, census on tiles: bins
+    equal to the static plan's, one copy and one census_csr launch per
+    task a run; cold, and warm in turns with static; a profiled warm run.
+    Returns the census_csr launches of one warm dynamic run."""
+    import numpy as np
+
+    from repro_torch.engine import EngineConfig, compile
+    from repro_torch.kernels.triad_census import census_csr
+
+    cfg = EngineConfig(backend="tiles", device=dev, schedule="dynamic")
+    torch.cuda.synchronize()
+    census_csr.launches = 0
+    t0 = time.perf_counter()
+    plan = compile(g, ("triad_census",), cfg)
+    raw_cold = plan.run_raw(g)
+    cold_s = time.perf_counter() - t0
+    tasks = dynamic_tasks(plan, g)
+    check(plan.executor.n_devices == 1
+          and census_csr.launches == plan.stats["chunks"] == len(tasks)
+          and plan.stats["host_syncs"] == 1
+          and plan.stats["device_chunks"] == {0: len(tasks)},
+          f"{name} dynamic cold: {census_csr.launches} launches, "
+          f"{len(tasks)} tasks, {plan.stats}")
+    check(np.array_equal(raw_cold, raw_static),
+          f"{name} dynamic {raw_cold.tolist()} != static "
+          f"{raw_static.tolist()}")
+    census_csr.launches = 0
+    static_s, dynamic_s = warm_times(torch, [lambda: static.run_raw(g),
+                                             lambda: plan.run_raw(g)], 3)
+    static_chunks = static.stats["chunks"] // static.stats["runs"]
+    check(census_csr.launches == 3 * (len(tasks) + static_chunks)
+          and plan.stats["host_syncs"] == 4,
+          f"{name} warm: {census_csr.launches} launches, {plan.stats}")
+    census_csr.launches = 0
+    split = device_split(torch, lambda: plan.run_raw(g))
+    launches = census_csr.launches
+    check(launches == len(tasks), f"{name} profiled: {launches} launches")
+    lengths = [t.end - t.start for t in tasks]
+    per_bucket = {}
+    for t in tasks:
+        per_bucket[t.key] = per_bucket.get(t.key, 0) + 1
+    emit("dynamic", graph=name, ops=["triad_census"], pool=1,
+         tasks=len(tasks), static_chunks=static_chunks,
+         tasks_per_bucket={str(k): c for k, c in per_bucket.items()},
+         shortest_task=min(lengths), longest_task=max(lengths),
+         launches=launches, host_syncs_per_run=1, cold_s=cold_s,
+         warm_s=dynamic_s, static_warm_s=static_s,
+         warm_over_static=float(np.median(dynamic_s) / np.median(static_s)),
+         bit_identical_to_static=True, faults=plan.stats["faults"],
+         degradation=plan.degradation, **{
+             k: split[k] for k in ("wall_ms", "device_busy_ms",
+                                   "device_idle_share", "kernel_launches")},
+         census_csr_ms=sum(t["ms"] for t in split["top"]
+                           if "census_csr" in t["kernel"]))
+    return launches
+
+
+def dynamic_fused_phase(torch, dev, g):
+    """The four built-in ops in one dynamic tiles pass on Slashdot, against
+    the static fused plan's bins.  Returns (tasks, the static raw bins)."""
+    import numpy as np
+
+    from repro_torch.engine import EngineConfig, compile
+    from repro_torch.kernels.triad_census import census_csr
+
+    static = compile(g, FUSED_OPS, EngineConfig(backend="tiles", device=dev))
+    raw_static = static.run_raw(g)
+    plan = compile(g, FUSED_OPS, EngineConfig(backend="tiles", device=dev,
+                                              schedule="dynamic"))
+    census_csr.launches = 0
+    t0 = time.perf_counter()
+    raw = plan.run_raw(g)
+    cold_s = time.perf_counter() - t0
+    tasks = len(dynamic_tasks(plan, g))
+    check(census_csr.launches == plan.stats["chunks"] == tasks
+          and plan.stats["host_syncs"] == 1,
+          f"dynamic fused: {census_csr.launches} launches, {plan.stats}")
+    check(np.array_equal(raw, raw_static),
+          f"dynamic fused {raw.tolist()} != static {raw_static.tolist()}")
+    emit("dynamic_fused", graph="slashdot", ops=list(FUSED_OPS), tasks=tasks,
+         launches=census_csr.launches, cold_s=cold_s,
+         bit_identical_to_static=True)
+    return tasks, raw_static
+
+
+def faults_phase(torch, dev, g, raw_clean):
+    """Injected faults on Slashdot, tiles: recoverable chunk failures
+    (static and dynamic), the loss of the only pool device, the tiles
+    runtime failure with and without the ``tiles -> search`` rung, and a
+    16-request dynamic service.  Every recovered run is bit-equal to the
+    clean one with one copy, every counter as the plan injected.  Returns
+    the census_csr launches of the recovered runs."""
+    import numpy as np
+
+    from repro_torch.core import generators
+    from repro_torch.engine import (ChunkRetryError, EngineConfig, FaultPlan,
+                                    compile)
+    from repro_torch.engine.backends import tiles_stream
+    from repro_torch.kernels.triad_census import census_csr
+    from repro_torch.serve import CensusService, ServiceConfig
+
+    def run(fp, **kw):
+        plan = compile(g, ("triad_census",), EngineConfig(
+            backend="tiles", device=dev, fault_plan=fp, **kw))
+        census_csr.launches = 0
+        raw = plan.run_raw(g)
+        check(np.array_equal(raw, raw_clean) and plan.stats["host_syncs"] == 1,
+              f"faults {fp} {kw}: bins != clean or {plan.stats}")
+        return plan, census_csr.launches
+
+    launches = {}
+    chaos = FaultPlan(seed=16, chunk_failure_rate=0.2, fail_attempts=1)
+    for schedule in ("static", "dynamic"):
+        plan, n = run(chaos, schedule=schedule)
+        tasks = (dynamic_tasks(plan, g) if schedule == "dynamic"
+                 else tiles_stream(plan, g).tasks)
+        picked = sum(chaos.chunk_fails(t.start, 1) for t in tasks)
+        fs = plan.stats["faults"]
+        check(picked > 0 and fs["retries"] == fs["chunk_failures"] == picked
+              and n == len(tasks) == plan.stats["chunks"]
+              and not plan.degradation
+              and all(fs[k] == 0 for k in ("device_losses", "quarantines",
+                                           "backend_fallbacks",
+                                           "schedule_fallbacks")),
+              f"chunk chaos {schedule}: {picked} picked, {n} launches, "
+              f"{len(tasks)} tasks, {plan.stats}")
+        launches[f"chunk_chaos_{schedule}"] = n
+        emit("faults", graph="slashdot", case=f"chunk_chaos_{schedule}",
+             fault_plan=dataclasses.asdict(chaos), tasks=len(tasks),
+             selected_chunks=picked, launches=n, host_syncs_per_run=1,
+             bit_identical_to_clean=True, faults=fs,
+             fault_events=len(plan.stats["fault_events"]),
+             degradation=plan.degradation)
+
+    lost = FaultPlan(seed=16, device_loss=(0,))
+    plan, n = run(lost, schedule="dynamic")
+    fs = plan.stats["faults"]
+    check(fs["schedule_fallbacks"] == 1 and fs["device_losses"] == 1
+          and fs["retries"] == 0 and not plan.degradation
+          and n == plan.stats["chunks"] == len(dynamic_tasks(plan, g)),
+          f"device loss: {n} launches, {plan.stats}")
+    launches["device_loss"] = n
+    emit("faults", graph="slashdot", case="device_loss_dynamic",
+         fault_plan=dataclasses.asdict(lost), launches=n,
+         host_syncs_per_run=1, bit_identical_to_clean=True, faults=fs,
+         fault_events=plan.stats["fault_events"][:8],
+         degradation=plan.degradation)
+
+    broken = FaultPlan(runtime_failure=("tiles",))
+    plan = compile(g, ("triad_census",), EngineConfig(
+        backend="tiles", device=dev, fault_plan=broken))
+    census_csr.launches = 0
+    try:
+        plan.run_raw(g)
+        raised = None
+    except ChunkRetryError as e:
+        raised = type(e).__name__
+    check(raised and plan.backend == "tiles" and not plan.degradation
+          and census_csr.launches == 0
+          and plan.stats["faults"]["backend_fallbacks"] == 0,
+          f"runtime failure, default config: raised {raised}, {plan.stats}")
+    emit("faults", graph="slashdot", case="runtime_failure_default",
+         fault_plan=dataclasses.asdict(broken), raised=raised,
+         faults=plan.stats["faults"], degradation=plan.degradation)
+    t0 = time.perf_counter()
+    plan, n = run(broken, backend_fallback=True)
+    demoted_s = time.perf_counter() - t0
+    census_csr.launches = 0
+    again = plan.run_raw(g)
+    fs = plan.stats["faults"]
+    check(plan.backend == "search" and plan.requested_backend == "tiles"
+          and [d["rung"] for d in plan.degradation] == ["tiles->search"]
+          and plan.degradation[0]["stage"] == "runtime"
+          and fs["backend_fallbacks"] == 1 and n == 0
+          and census_csr.launches == 0 and np.array_equal(again, raw_clean),
+          f"runtime rung: {n} / {census_csr.launches} launches, "
+          f"{plan.degradation}, {plan.stats}")
+    emit("faults", graph="slashdot", case="runtime_failure_fallback",
+         fault_plan=dataclasses.asdict(broken), seconds=demoted_s,
+         launches_after_demotion=0, bit_identical_to_clean=True, faults=fs,
+         degradation=plan.degradation)
+
+    # a dynamic service of 16 requests over 2 buckets under chunk chaos
+    fleet = ([generators.rmat(12, edge_factor=8, seed=s, device=dev)
+              for s in range(8)]
+             + [generators.erdos_renyi(4096, 24000, seed=s, device=dev)
+                for s in range(8)])
+    cfg = EngineConfig(backend="tiles", device=dev, schedule="dynamic",
+                       fault_plan=chaos)
+    clean = EngineConfig(backend="tiles", device=dev)
+    want_retries = 0
+    for fg in fleet:
+        want_retries += sum(chaos.chunk_fails(t.start, 1)
+                            for t in dynamic_tasks(compile(fg, (
+                                "triad_census",), cfg), fg))
+    svc = CensusService(ServiceConfig(max_batch=16, max_wait_requests=64,
+                                      census=cfg))
+    census_csr.launches = 0
+    ids = [svc.submit(fg) for fg in fleet]
+    done = {c.request_id: c for c in svc.poll() + svc.flush()}
+    service_launches = census_csr.launches
+    st = svc.stats()
+    health = st["health"]
+    check(sorted(done) == ids and all(
+        done[i].error is None and np.array_equal(
+            done[i].result.counts,
+            compile(fg, ("triad_census",), clean).run(fg)[
+                "triad_census"].counts) for i, fg in zip(ids, fleet)),
+        "faulty dynamic service: a completion != its clean run")
+    check(len(st["buckets"]) == 2 and want_retries > 0
+          and health["retries"] == want_retries
+          and all(health[k] == 0 for k in (
+              "quarantines", "backend_fallbacks", "schedule_fallbacks",
+              "poisoned", "batch_failures", "group_failures"))
+          and st["devices"] == {0: service_launches},
+          f"faulty dynamic service: want {want_retries} retries, {st}")
+    launches["service"] = service_launches
+    emit("faults", graph="rmat12+er4096x24000", case="service_dynamic",
+         requests=len(fleet), buckets=len(st["buckets"]),
+         batches=st["batches"], launches=service_launches,
+         devices=st["devices"], health=health,
+         expected_retries=want_retries, bit_identical_to_clean=True)
+    return launches
+
+
+def reorder_phase(torch, dev, g, rates, raw_fused):
+    """Slashdot under each reorder strategy: the four ops' bins equal to
+    the unreordered run, the cold host relabeling and the warm census
+    timed, census_csr held to its plain version and timed over every
+    chunk of the relabeled stream; one ``apply_delta`` (k = 64) under
+    ``rcm`` against the full recompute.  Returns the census_csr launches
+    of one warm census run per strategy and of the delta."""
+    import numpy as np
+
+    from repro_torch.core.reorder import (compute_permutation,
+                                          locality_score, permute_graph)
+    from repro_torch.engine import EngineConfig, compile
+    from repro_torch.engine.backends import tiles_stream
+    from repro_torch.kernels.triad_census import census_csr
+
+    base = compile(g, ("triad_census",),
+                   EngineConfig(backend="tiles", device=dev))
+    raw_census = base.run_raw(g)
+    launches = {}
+    for strategy in REORDERS:
+        t0 = time.perf_counter()
+        perm = compute_permutation(g, strategy)
+        perm_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        g_x = permute_graph(g, perm)
+        relabel_s = time.perf_counter() - t0
+        cfg = EngineConfig(backend="tiles", device=dev, reorder=strategy)
+        fused = compile(g, FUSED_OPS, cfg)
+        check(np.array_equal(fused.run_raw(g), raw_fused),
+              f"{strategy}: fused bins != unreordered")
+        plan = compile(g, ("triad_census",), cfg)
+        raw = plan.run_raw(g)
+        check(np.array_equal(raw, raw_census)
+              and plan.stats["reorders"] == 1,
+              f"{strategy}: census bins != unreordered, {plan.stats}")
+        census_csr.launches = 0
+        base_s, warm_s = warm_times(torch, [lambda: base.run_raw(g),
+                                            lambda: plan.run_raw(g)], 3)
+        launches[strategy] = census_csr.launches // 3 - base.stats[
+            "chunks"] // base.stats["runs"]
+        check(plan.stats["reorders"] == 1 and plan.stats["host_syncs"] == 4,
+              f"{strategy}: warm runs reordered again, {plan.stats}")
+        st = tiles_stream(plan, g_x)
+        buckets = csr_kernel_phase(torch, g_x, st, st.tasks, rates,
+                                   f"slashdot_{strategy}")
+        emit("reorder", graph="slashdot", strategy=strategy,
+             locality_score=locality_score(g_x),
+             permutation_host_s=perm_s, relabel_host_s=relabel_s,
+             warm_s=warm_s, unreordered_warm_s=base_s,
+             launches=launches[strategy], chunks=len(st.tasks),
+             census_csr_ms=sum(b["kernel_ms"] for b in buckets.values()),
+             census_csr_bound_ms=sum(b["bound_ms"] for b in buckets.values()),
+             census_csr_plain_ms=sum(b["plain_ms"] for b in buckets.values()),
+             bit_identical_to_unreordered=True, ops=list(FUSED_OPS),
+             faults=plan.stats["faults"], degradation=plan.degradation)
+        del st, g_x
+    emit("reorder_base", graph="slashdot", locality_score=locality_score(g))
+
+    plan = compile(g, ("triad_census",), EngineConfig(
+        backend="tiles", device=dev, reorder="rcm", delta_threshold=1.0))
+    raw = plan.run_raw(g)
+    d = footprint_delta(g, 64, np.random.default_rng(16))
+    census_csr.launches = 0
+    t0 = time.perf_counter()
+    res = plan.apply_delta(g, d, raw)
+    delta_s = time.perf_counter() - t0
+    launches["delta_rcm_k64"] = census_csr.launches
+    want = base.run_raw(res.graph)
+    check(res.mode == "delta" and np.array_equal(res.raw, want)
+          and np.array_equal(plan.run_raw(res.graph), want)
+          and plan.stats["reorders"] == 1,
+          f"rcm delta k=64: mode {res.mode}, {plan.stats}")
+    emit("reorder_delta", graph="slashdot", strategy="rcm", k=64,
+         mode=res.mode, affected_fraction=res.affected_fraction,
+         launches=launches["delta_rcm_k64"], seconds=delta_s,
+         reorders=plan.stats["reorders"], bit_identical_to_full=True)
     return launches
 
 
@@ -1347,6 +1723,7 @@ def run(dev) -> int:
                           f"{got.tolist()} != {want.tolist()}")
                     n_small += 1
     emit("small_graphs", runs=n_small, equal=True)
+    faults_clean("small")
 
     # 4. the main path at full width ------------------------------------------
     clear_plan_cache()
@@ -1421,6 +1798,9 @@ def run(dev) -> int:
     check(np.array_equal(raws[0], raw_warm), "profiled run != warm run")
     check(not gathers, f"the main path gathered {len(gathers)} tile rows")
     emit("profile", gather_rows_calls=len(gathers), **split)
+    faults_clean("full")
+    dynamic_launches = dict(slashdot=dynamic_phase(
+        torch, dev, "slashdot", g, plan, raw_warm))
 
     csr_err = max(b["max_abs_err"] for b in csr_buckets.values())
     csr_row = dict(
@@ -1449,12 +1829,27 @@ def run(dev) -> int:
     torch.cuda.empty_cache()
 
     # 4b. the main path on Amazon at its published size ----------------------
-    amazon_phase(torch, dev, rates)
+    dynamic_launches["amazon"] = amazon_phase(torch, dev, rates)
 
     # 4c.-4e. fused ops, fleet serving and deltas, through census_csr --------
-    csr_row.update(fused_launches=fused_phase(torch, dev, g),
-                   fleet_launches=fleet_phase(torch, dev),
-                   session_launches=session_phase(torch, dev, g))
+    csr_row.update(fused_launches=fused_phase(torch, dev, g))
+    faults_clean("fused")
+    csr_row.update(fleet_launches=fleet_phase(torch, dev))
+    faults_clean("fleet")
+    csr_row.update(session_launches=session_phase(torch, dev, g))
+    faults_clean("session")
+
+    # 4f.-4h. the dynamic schedule, reordering, injected faults --------------
+    dynamic_launches["fused_slashdot"], raw_fused = dynamic_fused_phase(
+        torch, dev, g)
+    faults_clean("dynamic")
+    clear_plan_cache()
+    reorder_launches = reorder_phase(torch, dev, g, rates, raw_fused)
+    faults_clean("reorder")
+    csr_row.update(dynamic_launches=dynamic_launches,
+                   reorder_launches=reorder_launches,
+                   faults_launches=faults_phase(torch, dev, g, raw_warm))
+    clear_plan_cache()
     del g
     torch.cuda.empty_cache()
 

@@ -89,6 +89,19 @@ class GraphDelta:
         return np.unique(np.concatenate([self.edges_added.ravel(),
                                          self.edges_removed.ravel()]))
 
+    def permuted(self, perm) -> "GraphDelta":
+        """The same mutation in relabeled vertex ids: every endpoint ``x``
+        becomes ``perm[x]``.  :func:`~repro_torch.core.graph.from_edges`
+        is canonical over arc sets, so applying the permuted delta to the
+        permuted graph gives the permutation of the mutated graph — the
+        boundary translation of the engine's ``reorder=`` path."""
+        p = np.asarray(perm, dtype=np.int64)
+        return GraphDelta(
+            edges_added=(p[self.edges_added] if len(self.edges_added)
+                         else self.edges_added),
+            edges_removed=(p[self.edges_removed] if len(self.edges_removed)
+                           else self.edges_removed))
+
     def validate_for(self, g: CSRGraph) -> None:
         """Raise ``ValueError`` unless every endpoint is a vertex of ``g``."""
         if self.size and int(self.touched[-1]) >= g.n:

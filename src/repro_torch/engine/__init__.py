@@ -24,6 +24,15 @@ Backends (counterparts of the JAX engine's):
     "search"  — the binary-search batch program as torch ops (JAX: "xla")
     "auto"    — "tiles"
 
+Execution policy (``EngineConfig``): ``schedule="static"|"dynamic"``
+over the executor's device pool (``n_executor_devices``; CPU slots on
+``"cpu"``), bounded chunk retry (``max_attempts``) with quarantine and a
+``dynamic -> static`` rung, an opt-in ``tiles -> search`` rung
+(``backend_fallback``, off by default), seeded fault injection
+(``FaultPlan``, or the ``REPRO_TORCH_FAULT_PLAN`` environment variable),
+and locality relabeling (``reorder="degree"|"bfs"|"rcm"``) with results
+bit-identical to ``"none"``.
+
 Plans run on ``EngineConfig.device`` (``None`` = ``"cuda"``; raises
 without CUDA, never falls back to the CPU).  ``CensusConfig`` /
 ``compile_census`` / :class:`CensusPlan` are the census-era names of the
@@ -31,10 +40,13 @@ same entry points.
 """
 from ..core.census import CensusResult
 from ..core.delta import GraphDelta, affected_dyads, apply_delta_csr
-from .config import BACKENDS, CensusConfig, EngineConfig
+from .config import BACKENDS, REORDERS, SCHEDULES, CensusConfig, EngineConfig
 from .delta import DeltaResult, delta_correction
-from .executor import ChunkTask, Executor
-from .faults import InjectedFault, is_poisoned, poison, unpoison
+from .executor import (ChunkRetryError, ChunkTask, Executor,
+                       PoolExhaustedError, WorkerFailures)
+from .faults import (DeviceLostError, FaultPlan, InjectedFault,
+                     fault_plan_from_env, is_poisoned, poison,
+                     resolve_faults, unpoison)
 from .ops import (DegreeStats, DyadCensus, GraphOp, OpLayout, TriadCensusOp,
                   TriadicProfile, get_op, list_ops, register_op, resolve_ops,
                   unregister_op)
@@ -43,12 +55,14 @@ from .plan import (CensusPlan, GraphMeta, Plan, PlanShapeError,
                    plan_cache_stats, set_plan_cache_capacity)
 
 __all__ = [
-    "BACKENDS", "CensusConfig", "CensusPlan", "CensusResult", "ChunkTask",
-    "DegreeStats", "DeltaResult", "DyadCensus", "EngineConfig", "Executor",
+    "BACKENDS", "CensusConfig", "CensusPlan", "CensusResult",
+    "ChunkRetryError", "ChunkTask", "DegreeStats", "DeltaResult",
+    "DeviceLostError", "DyadCensus", "EngineConfig", "Executor", "FaultPlan",
     "GraphDelta", "GraphMeta", "GraphOp", "InjectedFault", "OpLayout",
-    "Plan", "PlanShapeError", "TriadCensusOp", "TriadicProfile",
-    "affected_dyads", "apply_delta_csr", "clear_plan_cache", "compile",
-    "compile_census", "delta_correction", "get_op", "is_poisoned",
-    "list_ops", "plan_cache_stats", "poison", "register_op", "resolve_ops",
-    "set_plan_cache_capacity", "unpoison", "unregister_op",
+    "Plan", "PlanShapeError", "PoolExhaustedError", "REORDERS", "SCHEDULES",
+    "TriadCensusOp", "TriadicProfile", "WorkerFailures", "affected_dyads",
+    "apply_delta_csr", "clear_plan_cache", "compile", "compile_census",
+    "delta_correction", "fault_plan_from_env", "get_op", "is_poisoned",
+    "list_ops", "plan_cache_stats", "poison", "register_op", "resolve_faults",
+    "resolve_ops", "set_plan_cache_capacity", "unpoison", "unregister_op",
 ]

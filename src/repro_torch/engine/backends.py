@@ -4,14 +4,17 @@ Counterpart of the ``"pallas"`` and ``"xla"`` device-resident paths of
 :mod:`repro.engine.backends` and of the subset passes of
 :mod:`repro.engine.delta`.  Every driver keeps its work on the plan's
 device: dyads are enumerated (and, for the census on tiles,
-bucket-sorted) on the device, each chunk adds its partial counts into an
-int64 accumulator in place, and
-:func:`~repro_torch.engine.executor._acc_fetch` is the one device→host
-copy of a run, a batch or a delta correction.  The once contributions
-(vertex-space ops) are folded into the accumulator once per graph pass,
-before its chunks.  The chunk schedules are derived on the host from the
-degree arrays the graph already holds, so no control value is ever read
-back from the card.
+bucket-sorted) on the device, each chunk unit returns its
+``(total_bins,)`` int64 contribution, the plan's
+:class:`~repro_torch.engine.executor.Executor` adds it into an
+accumulator, and :func:`~repro_torch.engine.executor._acc_fetch` is the
+one device→host copy of a run, a batch or a delta correction.  The once
+contributions (vertex-space ops) are folded into the accumulator once
+per graph pass, before its chunks.  The chunk schedules are derived on
+the host from the degree arrays the graph already holds, so no control
+value is ever read back from the card: fixed-size chunks under the
+static schedule, equal-cost chunks (:mod:`repro_torch.core.balance`)
+under the dynamic one.
 
 A *pass* adds one graph's bins into an accumulator row: the full passes
 (:func:`search_pass`, :func:`tiles_pass`) walk every dyad, the subset
@@ -25,6 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..core import balance
 from ..core.census import (canonical_dyads, dyad_buckets,
                            enumerate_dyads_device, host_bucket_schedule,
                            sort_dyads_by_bucket)
@@ -51,20 +55,46 @@ def _memo_tasks(plan, g: CSRGraph, key, build) -> "list[ChunkTask]":
     return tasks
 
 
+def _placer(arrays: GraphArrays, *tensors):
+    """The executor's ``place(device)`` for a pass: the graph arrays and
+    dyad tensors on the worker's device (``Tensor.to`` copies nothing on
+    the device they already hold, so a one-slot or CPU pool copies
+    nothing)."""
+    def place(dev):
+        return (GraphArrays(*(None if a is None else a.to(dev)
+                              for a in arrays)),
+                *(t.to(dev) for t in tensors))
+
+    return place
+
+
+def _span_tasks(plan, g: CSRGraph, u: np.ndarray, v: np.ndarray,
+                chunk: int) -> "list[ChunkTask]":
+    """Chunk spans over the dyad list ``(u, v)``: fixed-size under the
+    static schedule, equal predicted work under the dynamic one (the
+    ``config.weight_model`` cost of each dyad,
+    :func:`~repro_torch.core.balance.chunk_bounds_by_cost`); no key."""
+    D = len(u)
+    if plan.config.schedule == "dynamic" and D:
+        w = balance.dyad_weights(g, u, v, plan.config.weight_model)
+        bounds = balance.chunk_bounds_by_cost(w, chunk)
+        cum = np.concatenate([[0.0], np.cumsum(w, dtype=np.float64)])
+        return [ChunkTask(int(a), int(b), float(cum[b] - cum[a]))
+                for a, b in zip(bounds[:-1], bounds[1:])]
+    return [ChunkTask(s, min(s + chunk, D), float(min(s + chunk, D) - s))
+            for s in range(0, D, chunk)]
+
+
 def _fold_once(plan, acc: torch.Tensor, arrays: GraphArrays, n: int) -> None:
     """Add the plan's once contributions for one graph into ``acc``."""
     if plan._once is not None:
         acc += plan._once(arrays, n)
 
 
-def _upload_dyads(plan, u: np.ndarray, v: np.ndarray, size: int):
-    """A host dyad list on the plan's device, padded to ``size`` with the
-    inert dyad ``(0, 1)``."""
-    du = np.zeros(size, dtype=np.int32)
-    dv = np.ones(size, dtype=np.int32)
-    du[: len(u)], dv[: len(v)] = u, v
-    return (torch.from_numpy(du).to(plan.device),
-            torch.from_numpy(dv).to(plan.device))
+def _upload_dyads(plan, u: np.ndarray, v: np.ndarray):
+    """A host dyad list on the plan's device, as int32."""
+    return tuple(torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32))
+                 .to(plan.device) for x in (u, v))
 
 
 # ----------------------------------------------------------------------------
@@ -73,42 +103,46 @@ def _upload_dyads(plan, u: np.ndarray, v: np.ndarray, size: int):
 
 
 def make_search_chunk_fn(layout):
-    """Chunk unit ``(arrays, n, du, dv, task, acc; chunk)`` of the search
-    backend: the fused batch program over dyads ``[task.start, task.end)``
-    of the device dyad list, added into ``acc`` in place."""
+    """Chunk unit ``(arrays, n, du, dv, task) -> (total_bins,)`` of the
+    search backend: the fused batch program over dyads ``[task.start,
+    task.end)`` of the device dyad list."""
     fused = layout.batch_kernel()
 
-    def search_chunk(arrays, n, du, dv, task, acc, *, chunk: int):
-        u = du[task.start: task.start + chunk]
-        v = dv[task.start: task.start + chunk]
-        valid = torch.arange(chunk, device=u.device) < task.end - task.start
-        acc += fused(arrays, n, u, v, valid, task.key)
+    def search_chunk(arrays, n, du, dv, task):
+        u, v = du[task.start: task.end], dv[task.start: task.end]
+        valid = torch.ones(u.shape[0], dtype=torch.bool, device=u.device)
+        return fused(arrays, n, u, v, valid, task.key)
 
     return search_chunk
 
 
-def _search_tasks(g: CSRGraph, u: np.ndarray, v: np.ndarray,
+def _search_tasks(plan, g: CSRGraph, u: np.ndarray, v: np.ndarray,
                   chunk: int) -> "list[ChunkTask]":
-    """Fixed-size chunks over the dyad list ``(u, v)``; each task's key is
-    its ragged candidate count, ``sum(deg(u) + deg(v))`` over its dyads."""
+    """The schedule's spans over the dyad list ``(u, v)``
+    (:func:`_span_tasks`); each task's key is its ragged candidate count,
+    ``sum(deg(u) + deg(v))`` over its dyads."""
     deg = g.host.nbr_deg.astype(np.int64)
     cum = np.concatenate([[0], np.cumsum(deg[u] + deg[v])])
-    spans = [(s, min(s + chunk, len(u))) for s in range(0, len(u), chunk)]
-    return [ChunkTask(s, e, float(e - s), int(cum[e] - cum[s]))
-            for s, e in spans]
+    return [t._replace(key=int(cum[t.end] - cum[t.start]))
+            for t in _span_tasks(plan, g, u, v, chunk)]
+
+
+def _run_search(plan, g: CSRGraph, arrays, du, dv, tasks, acc) -> None:
+    _fold_once(plan, acc, arrays, g.n)
+    plan.executor.run(
+        tasks, place=_placer(arrays, du, dv),
+        step=lambda ctx, t: plan._fn(ctx[0], g.n, ctx[1], ctx[2], t),
+        init=acc)
 
 
 def search_pass(plan, g: CSRGraph, acc: torch.Tensor) -> None:
     """Add ``g``'s full search-backend bins into ``acc`` (graph has dyads)."""
     arrays = plan.padded_arrays(g)
-    _fold_once(plan, acc, arrays, g.n)
     du, dv = enumerate_dyads_device(arrays.nbr_ptr, arrays.nbr_idx, g.m_nbr,
                                     out_size=plan.dyad_pad)
     tasks = _memo_tasks(plan, g, ("search", plan.chunk), lambda: _search_tasks(
-        g, *canonical_dyads(g), plan.chunk))
-    plan.executor.run(
-        tasks, lambda t: plan._fn(arrays, g.n, du, dv, t, acc,
-                                  chunk=plan.chunk))
+        plan, g, *canonical_dyads(g), plan.chunk))
+    _run_search(plan, g, arrays, du, dv, tasks, acc)
 
 
 def subset_search(plan, g: CSRGraph, u: np.ndarray, v: np.ndarray,
@@ -117,14 +151,12 @@ def subset_search(plan, g: CSRGraph, u: np.ndarray, v: np.ndarray,
     once contributions) into ``acc``; each task's candidate count is
     summed on the host from the list."""
     arrays = plan.padded_arrays(g)
-    _fold_once(plan, acc, arrays, g.n)
     if not len(u):
+        _fold_once(plan, acc, arrays, g.n)
         return
-    chunk = plan.chunk
-    du, dv = _upload_dyads(plan, u, v, -(-len(u) // chunk) * chunk)
-    plan.executor.run(
-        _search_tasks(g, u, v, chunk),
-        lambda t: plan._fn(arrays, g.n, du, dv, t, acc, chunk=chunk))
+    du, dv = _upload_dyads(plan, u, v)
+    _run_search(plan, g, arrays, du, dv,
+                _search_tasks(plan, g, u, v, plan.chunk), acc)
 
 
 # ----------------------------------------------------------------------------
@@ -163,21 +195,27 @@ def chunk_tile_inputs(arrays, su, sv, task, chunk: int):
 
 
 def make_tiles_chunk_fn(layout):
-    """Chunk unit ``(arrays, n, su, sv, task, acc; chunk, block)`` of the
-    tiles backend, over the task's dyads (:func:`chunk_dyads`):
+    """Chunk unit ``(arrays, n, su, sv, task; chunk, block) ->
+    (total_bins,)`` of the tiles backend, over the task's dyads
+    (:func:`chunk_dyads`):
 
     * the CSR census kernel, its warp or CTA mapping chosen by the bucket
-      width ``task.key``, adds its (chunk / block, 16) partials into the
-      ``triad_census`` slice of ``acc``;
+      width ``task.key``, gives (chunk / block, 16) partials, summed into
+      the ``triad_census`` slice;
     * every other kernel (``layout.batch_kernel(skip=("triad_census",))``)
       runs on the same dyads, padded lanes remapped to the inert ``(0,
-      1)`` dyad and masked by ``valid``, with ``n_cand=None``."""
+      1)`` dyad and masked by ``valid``, with ``n_cand=None``.
+
+    The whole contribution is built before it is returned, so the
+    executor folds it with one add: a launch that fails after the other
+    kernels ran leaves the accumulator untouched, and its retry counts
+    every op once."""
     census_sl = layout.slices.get(CENSUS)
+    census_only = census_sl == slice(0, layout.total_bins)
     rest = (layout.batch_kernel(skip=(CENSUS,))
             if layout.has_batch(skip=(CENSUS,)) else None)
 
-    def tiles_chunk(arrays, n, su, sv, task, acc, *, chunk: int,
-                    block: int):
+    def tiles_chunk(arrays, n, su, sv, task, *, chunk: int, block: int):
         u, v, valid = chunk_dyads(su, sv, task, chunk)
         if rest is not None:
             if valid is None:
@@ -186,11 +224,17 @@ def make_tiles_chunk_fn(layout):
             else:
                 ru, rv, rvalid = (torch.where(valid, u, 0),
                                   torch.where(valid, v, 1), valid)
-            acc += rest(arrays, n, ru, rv, rvalid, None)
+            part = rest(arrays, n, ru, rv, rvalid, None)
+        elif not census_only:
+            part = torch.zeros(layout.total_bins, dtype=torch.int64,
+                               device=u.device)
         if census_sl is not None:
-            acc[census_sl].add_(census_csr(u, v, n, arrays, k=task.key,
-                                           block=block).sum(
-                0, dtype=torch.int64))
+            census = census_csr(u, v, n, arrays, k=task.key,
+                                block=block).sum(0, dtype=torch.int64)
+            if census_only:
+                return census
+            part[census_sl] += census
+        return part
 
     return tiles_chunk
 
@@ -208,25 +252,32 @@ def tiles_geometry(plan) -> "tuple[int, int, tuple]":
     return block, chunk, ks
 
 
-def _bucket_tasks(ks: tuple, counts, chunk: int) -> "list[ChunkTask]":
-    """Per-bucket fixed-size chunks over a bucket-sorted dyad stream whose
-    buckets hold ``counts`` dyads; each task's key is its bucket's width
-    ``K``, which bounds every row of its dyads."""
+def _bucket_tasks(ks: tuple, counts, chunk: int,
+                  need_sorted=None) -> "list[ChunkTask]":
+    """Per-bucket chunks over a bucket-sorted dyad stream whose buckets
+    hold ``counts`` dyads; each task's key is its bucket's width ``K``,
+    which bounds every row of its dyads.  Fixed-size chunks, or, given the
+    stream's per-dyad needs in stream order (the dynamic schedule),
+    equal-need chunks against one stream-wide quota, so the wide buckets
+    get proportionally shorter chunks."""
+    if need_sorted is not None:
+        cum = np.concatenate([[0.0], np.cumsum(need_sorted,
+                                               dtype=np.float64)])
+        target = cum[-1] / max(1, -(-len(need_sorted) // chunk))
     tasks: list = []
     offset = 0
     for K, c in zip(ks, (int(c) for c in counts)):
-        tasks += [ChunkTask(s, offset + c,
-                            float(K * min(chunk, offset + c - s)), K)
-                  for s in range(offset, offset + c, chunk)]
+        if need_sorted is not None and c:
+            bounds = offset + balance.chunk_bounds_by_cost(
+                need_sorted[offset: offset + c], chunk, target=target)
+            tasks += [ChunkTask(int(a), int(b), float(cum[b] - cum[a]), K)
+                      for a, b in zip(bounds[:-1], bounds[1:])]
+        else:
+            tasks += [ChunkTask(s, offset + c,
+                                float(K * min(chunk, offset + c - s)), K)
+                      for s in range(offset, offset + c, chunk)]
         offset += c
     return tasks
-
-
-def _flat_tasks(D: int, chunk: int, K: int) -> "list[ChunkTask]":
-    """Fixed-size chunks over an unsorted dyad stream of ``D`` dyads, keyed
-    by the top width ``K`` (the tiles plans without the census)."""
-    return [ChunkTask(s, min(s + chunk, D), float(min(s + chunk, D) - s), K)
-            for s in range(0, D, chunk)]
 
 
 class TilesStream(NamedTuple):
@@ -246,20 +297,26 @@ class TilesStream(NamedTuple):
 def tiles_stream(plan, g: CSRGraph) -> TilesStream:
     """Build the tiles backend's device stream for ``g`` (graph has
     dyads).  A plan without the census builds no arc flags and sorts
-    nothing: it streams the enumerated dyads in fixed chunks."""
+    nothing: it streams the enumerated dyads in the schedule's spans."""
     block, chunk, ks = tiles_geometry(plan)
     census = CENSUS in plan.layout.slices
     arrays = plan.padded_arrays(g, with_flags=census)
     du, dv = enumerate_dyads_device(arrays.nbr_ptr, arrays.nbr_idx, g.m_nbr,
                                     out_size=plan.dyad_pad)
     if not census:
-        return TilesStream(arrays, du, dv,
-                           _flat_tasks(g.n_dyads, chunk, ks[-1]), chunk,
-                           block)
+        tasks = _memo_tasks(plan, g, ("tiles-flat", chunk), lambda: [
+            t._replace(key=ks[-1])
+            for t in _span_tasks(plan, g, *canonical_dyads(g), chunk)])
+        return TilesStream(arrays, du, dv, tasks, chunk, block)
     su, sv, _ = sort_dyads_by_bucket(arrays.nbr_deg, arrays.out_ptr, du, dv,
                                      g.n_dyads, ks=ks)
-    tasks = _memo_tasks(plan, g, ("tiles", ks, chunk), lambda: _bucket_tasks(
-        ks, host_bucket_schedule(g, ks, with_needs=False)[0], chunk))
+    dynamic = plan.config.schedule == "dynamic"
+
+    def build():
+        counts, need = host_bucket_schedule(g, ks, with_needs=dynamic)
+        return _bucket_tasks(ks, counts, chunk, need)
+
+    tasks = _memo_tasks(plan, g, ("tiles", ks, chunk), build)
     return TilesStream(arrays, su, sv, tasks, chunk, block)
 
 
@@ -267,8 +324,10 @@ def _dispatch_tiles(plan, g: CSRGraph, st: TilesStream,
                     acc: torch.Tensor) -> None:
     _fold_once(plan, acc, st.arrays, g.n)
     plan.executor.run(
-        st.tasks, lambda t: plan._fn(st.arrays, g.n, st.su, st.sv, t, acc,
-                                     chunk=st.chunk, block=st.block))
+        st.tasks, place=_placer(st.arrays, st.su, st.sv),
+        step=lambda ctx, t: plan._fn(ctx[0], g.n, ctx[1], ctx[2], t,
+                                     chunk=st.chunk, block=st.block),
+        init=acc)
 
 
 def tiles_pass(plan, g: CSRGraph, acc: torch.Tensor) -> None:
@@ -294,10 +353,12 @@ def subset_tiles(plan, g: CSRGraph, u: np.ndarray, v: np.ndarray,
         order = np.lexsort((need, b))
         u, v = u[order], v[order]
         tasks = _bucket_tasks(
-            ks, np.bincount(b, minlength=len(ks))[: len(ks)], chunk)
+            ks, np.bincount(b, minlength=len(ks))[: len(ks)], chunk,
+            need[order] if plan.config.schedule == "dynamic" else None)
     else:
-        tasks = _flat_tasks(len(u), chunk, ks[-1])
-    su, sv = _upload_dyads(plan, u, v, len(u))
+        tasks = [t._replace(key=ks[-1])
+                 for t in _span_tasks(plan, g, u, v, chunk)]
+    su, sv = _upload_dyads(plan, u, v)
     _dispatch_tiles(plan, g, TilesStream(arrays, su, sv, tasks, chunk, block),
                     acc)
 

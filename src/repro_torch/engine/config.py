@@ -1,9 +1,9 @@
-"""Engine configuration: the knobs of the port's single-device census path.
+"""Engine configuration: the knobs of the port's census engine.
 
-Counterpart of :mod:`repro.engine.config` for the port's slices so far.
-One frozen, hashable dataclass, :class:`EngineConfig`; it is part of the
-plan-cache key.  :data:`CensusConfig` is the same class under its
-census-era name.
+Counterpart of :mod:`repro.engine.config` for the port's slices so far
+(partitions come with the next one).  One frozen, hashable dataclass,
+:class:`EngineConfig`; it is part of the plan-cache key.
+:data:`CensusConfig` is the same class under its census-era name.
 """
 from __future__ import annotations
 
@@ -12,9 +12,13 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..core.balance import WEIGHTS
 from ..core.graph import resolve_device
+from .faults import FaultPlan
 
 BACKENDS = ("tiles", "search", "auto")
+SCHEDULES = ("static", "dynamic")
+REORDERS = ("none", "degree", "bfs", "rcm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +59,45 @@ class EngineConfig:
             default ``0.5`` is the delta pass's break-even: it walks the
             affected set twice, once per graph version.  ``1.0`` always
             prefers the delta path.
+        schedule: chunk scheduling policy.  ``"static"`` runs the
+            fixed-size chunks in order on the plan's device;
+            ``"dynamic"`` carves the dyad stream into chunks of roughly
+            equal predicted work (``weight_model``; on tiles the
+            per-dyad bucket needs) and work-queues them over the
+            executor's device pool, the analogue of the paper's OpenMP
+            dynamic scheduling (:mod:`repro_torch.engine.executor`).
+        n_executor_devices: pool width under ``schedule="dynamic"``
+            (normalized to 1 under ``"static"``).  On ``"cuda"`` it is
+            clamped to ``torch.cuda.device_count()`` and ``None`` means
+            every device; on ``"cpu"`` it is that many CPU slots (worker
+            threads) as given, and ``None`` means one.
+        weight_model: the dyad cost model of the dynamic schedule on the
+            search backend and of tiles plans without the census (see
+            :mod:`repro_torch.core.balance`).
+        max_attempts: dispatch budget per chunk (>= 1; 1 disables
+            retry).  A chunk's contribution is folded only when its
+            attempt succeeds, so recovered runs are bit-identical.
+        backend_fallback: enable the ``tiles -> search`` rung of the
+            degradation ladder: a tiles compile failure, or a run whose
+            chunks exhaust their retries, demotes the plan to
+            ``"search"`` (recorded in ``Plan.degradation`` and
+            ``stats["faults"]["backend_fallbacks"]``).  **Off by default
+            in the port** (on in the JAX package): on the card a demotion
+            is a path that runs without the CUDA kernel, so a failing
+            kernel re-raises unless the caller asks for the rung.  A
+            kernel build or load error is never caught by any rung.
+        schedule_fallback: enable the ``dynamic -> static`` rung: a
+            dynamic pool whose devices are all lost or quarantined re-runs
+            the task list in order on the primary device.
+        reorder: locality relabeling before dispatch — ``"none"``,
+            ``"degree"``, ``"bfs"`` or ``"rcm"`` (see
+            :mod:`repro_torch.core.reorder`); memoized per (plan, graph),
+            results bit-identical to ``"none"``, deltas stay in original
+            ids.
+        fault_plan: a :class:`~repro_torch.engine.faults.FaultPlan`
+            injected into this plan (``None`` = the
+            ``REPRO_TORCH_FAULT_PLAN`` environment plan, if any; an inert
+            ``FaultPlan()`` opts out).
     """
 
     backend: str = "auto"
@@ -66,6 +109,14 @@ class EngineConfig:
     chunk_dyads: Optional[int] = None
     pipeline_depth: int = 2
     delta_threshold: float = 0.5
+    schedule: str = "static"
+    n_executor_devices: Optional[int] = None
+    weight_model: str = "canonical_uniform"
+    max_attempts: int = 3
+    backend_fallback: bool = False
+    schedule_fallback: bool = True
+    reorder: str = "none"
+    fault_plan: Optional[FaultPlan] = None
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
@@ -100,6 +151,37 @@ class EngineConfig:
                 "recompute — 1.0 always prefers the delta path")
         object.__setattr__(self, "delta_threshold",
                            float(self.delta_threshold))
+        if self.schedule not in SCHEDULES:
+            raise ValueError(f"schedule must be one of {SCHEDULES}, "
+                             f"got {self.schedule!r}")
+        if self.n_executor_devices is not None and self.n_executor_devices < 1:
+            raise ValueError(
+                f"n_executor_devices must be >= 1 (got "
+                f"{self.n_executor_devices}); use None for the default pool")
+        if self.weight_model not in WEIGHTS:
+            raise ValueError(f"weight_model must be one of {WEIGHTS}, got "
+                             f"{self.weight_model!r}")
+        if self.max_attempts < 1:
+            raise ValueError(
+                f"max_attempts must be >= 1 (got {self.max_attempts}); it "
+                "is the total dispatch budget per chunk — 1 disables retry")
+        for flag in ("backend_fallback", "schedule_fallback"):
+            if not isinstance(getattr(self, flag), bool):
+                raise ValueError(
+                    f"{flag} must be a bool (got "
+                    f"{getattr(self, flag)!r}); it toggles one rung of "
+                    "the degradation ladder")
+        if self.reorder not in REORDERS:
+            raise ValueError(
+                f"reorder must be one of {REORDERS}, got {self.reorder!r}; "
+                "'none' disables relabeling, 'degree' packs hubs first, "
+                "'bfs' uses Gorder-style frontier order, 'rcm' is reverse "
+                "Cuthill-McKee")
+        if self.fault_plan is not None and not isinstance(self.fault_plan,
+                                                          FaultPlan):
+            raise ValueError(
+                f"fault_plan must be a FaultPlan or None, got "
+                f"{type(self.fault_plan).__name__}")
 
     def resolve_backend(self) -> str:
         """Pin ``"auto"`` to a concrete backend: the tiles path."""
@@ -108,6 +190,19 @@ class EngineConfig:
     def resolve_device(self) -> torch.device:
         """The plan's device under the port's device rule."""
         return resolve_device(self.device)
+
+    def resolve_executor_devices(self) -> int:
+        """Executor pool width: 1 under the static schedule; else
+        ``n_executor_devices`` clamped to the CUDA device count (``None`` =
+        all of them), or on the CPU that many slots (``None`` = 1)."""
+        if self.schedule != "dynamic":
+            return 1
+        if self.resolve_device().type == "cuda":
+            count = torch.cuda.device_count()
+            n = (self.n_executor_devices if self.n_executor_devices
+                 is not None else count)
+            return max(1, min(n, count))
+        return self.n_executor_devices or 1
 
     def resolve_chunk(self) -> int:
         """Streaming chunk size, rounded up to a whole number of batches."""

@@ -144,6 +144,18 @@ class GraphOp:
         right answer from all-zero ``raw`` when ``g.m == 0``."""
         raise NotImplementedError
 
+    def unpermute_raw(self, raw: np.ndarray, perm: np.ndarray,
+                      g: CSRGraph) -> np.ndarray:
+        """Map this kernel's raw bins from relabeled vertex ids back to the
+        original ones (``perm[old_id] = new_id`` is the relabeling the run
+        used; see :mod:`repro_torch.core.reorder`).  The identity by
+        default: every built-in op's bins are vertex-anonymous
+        aggregates.  An op whose bin ``i`` belongs to vertex ``i``
+        overrides it with the gather ``out[:n] = raw[perm]``.  Must be
+        linear in ``raw``: the delta engine folds corrections computed in
+        relabeled ids through it."""
+        return raw
+
     def reference(self, g: CSRGraph) -> Any:
         """Numpy oracle of the op's result, for small graphs."""
         raise NotImplementedError
@@ -403,6 +415,7 @@ class OpLayout:
                     f"bins={op.bins} != {owners[key].bins} (the kernel "
                     f"owner's width) — sharers read the owner's slice and "
                     f"must agree on its size")
+        self._owners = owners
         self.bins = tuple(owners[k].bins for k in self.keys)
         edges = np.concatenate([[0], np.cumsum(self.bins)]).astype(int)
         self.slices = {k: slice(int(edges[i]), int(edges[i + 1]))
@@ -445,6 +458,23 @@ class OpLayout:
             return parts[0] if len(parts) == 1 else torch.cat(parts)
 
         return fused
+
+    def unpermute(self, raw, perm, g: CSRGraph) -> np.ndarray:
+        """Map fused raw bins from relabeled vertex ids back to the
+        original ones, slice by slice through each kernel owner's
+        :meth:`GraphOp.unpermute_raw`; returns ``raw`` itself when every
+        owner keeps the identity (all built-in ops)."""
+        out = None
+        for k in self.keys:
+            op = self._owners[k]
+            if type(op).unpermute_raw is GraphOp.unpermute_raw:
+                continue
+            if out is None:
+                out = np.array(raw, dtype=np.int64, copy=True)
+            sl = self.slices[k]
+            out[sl] = np.asarray(op.unpermute_raw(out[sl], perm, g),
+                                 dtype=np.int64)
+        return raw if out is None else out
 
     def finalize(self, raw, g: CSRGraph) -> dict:
         """Per-op results from the fused raw bins: ``{op.name: result}`` in

@@ -1,37 +1,60 @@
 """Compiled census plans and the plan cache.
 
-Counterpart of :mod:`repro.engine.plan` for the port's single-device
-slice.  ``compile(graph_meta, ops, config) -> Plan``: a :class:`Plan`
+Counterpart of :mod:`repro.engine.plan` (partitions come with the next
+slice).  ``compile(graph_meta, ops, config) -> Plan``: a :class:`Plan`
 owns what runs reuse — the padded-shape buckets, the chunk geometry, the
-fused chunk unit of its backend, and a per-graph memo of host-derived
-chunk schedules — and runs any number of ops in one pass with one
-device→host copy (``stats["host_syncs"]``): :meth:`Plan.run` for one
-graph, :meth:`Plan.run_batch` for B same-bucket graphs, and
+fused chunk unit of its backend, its :class:`~repro_torch.engine.
+executor.Executor` (schedule and device pool), and bounded per-graph
+memos of host-derived chunk schedules and of locality permutations — and
+runs any number of ops in one pass with one device→host copy
+(``stats["host_syncs"]``): :meth:`Plan.run` for one graph,
+:meth:`Plan.run_batch` for B same-bucket graphs, and
 :meth:`Plan.apply_delta` to advance a graph's bins by one mutation.
 Plans are cached in a bounded LRU keyed on bucketized graph metadata, the
 ops and the config, so same-shape graphs share one plan.
 
-Unlike the JAX engine, a failing backend is not demoted to another one:
-there is no degradation ladder in the port, and an error surfaces.
+**Degradation ladder.**  ``backend`` is the rung a plan runs on,
+``requested_backend`` what it was compiled for, and ``degradation`` the
+record of every demotion (empty on a healthy plan).  With
+``EngineConfig(backend_fallback=True)`` a tiles plan whose chunk unit
+fails to build, or whose run ends in a chunk that exhausted its retries
+(or a dynamic pool exhausted past its own static rung), demotes to
+``"search"`` for good, each demotion counted in
+``stats["faults"]["backend_fallbacks"]``.  The port's default is
+``False``: on the card that rung is a path without the CUDA kernel, so
+by default a failing kernel re-raises.  A kernel build or load error
+(:class:`~repro_torch.kernels._build.KernelBuildError`) and an
+asynchronous device fault are never demoted.  The ``dynamic -> static``
+rung lives in the executor.
+
+**Reordering.**  Under ``config.reorder`` each graph is relabeled once
+per plan (memoized beside the task memo, counted in
+``stats["reorders"]``), the backend runs on the relabeled graph, and the
+raw bins map back through ``OpLayout.unpermute``: raw bins are always in
+original vertex ids.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import math
+import weakref
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..core.census import CensusResult
 from ..core.graph import CSRGraph, GraphArrays, next_pow2
+from ..core.reorder import compute_permutation, permute_graph
 from ..kernels.ops import (MAX_PACKED_DEGREE, build_arc_flags_device,
                            build_in_csr_device)
 from . import backends
 from .config import EngineConfig
 from .delta import run_delta
-from .executor import Executor
-from .faults import check_poisoned
+from .executor import (ChunkRetryError, Executor, PoolExhaustedError,
+                       pool_devices)
+from .faults import InjectedFault, check_poisoned, resolve_faults
 from .ops import OpLayout, resolve_ops
 
 __all__ = ["CensusPlan", "GraphMeta", "Plan", "PlanShapeError", "compile",
@@ -97,14 +120,64 @@ class Plan:
         self.dyad_pad = max(self.chunk,
                             -(-d_bucket // self.chunk) * self.chunk)
         self.stats = {"runs": 0, "chunks": 0, "host_syncs": 0,
-                      "batch_runs": 0, "batch_graphs": 0, "delta_runs": 0,
-                      "delta_fulls": 0}
-        self.executor = Executor(config, self.stats, device)
+                      "batch_runs": 0, "batch_graphs": 0, "device_chunks": {},
+                      "delta_runs": 0, "delta_fulls": 0, "reorders": 0,
+                      "faults": dict(chunk_failures=0, retries=0,
+                                     device_losses=0, quarantines=0,
+                                     backend_fallbacks=0,
+                                     schedule_fallbacks=0),
+                      "fault_events": []}
+        self.requested_backend = backend
+        self.degradation: list = []
+        self.executor = Executor(
+            config, self.stats,
+            pool_devices(device, config.resolve_executor_devices()),
+            backend=backend)
         self._task_memo: dict = {}
+        self._reorder_memo: dict = {}
         self._once = self.layout.once_kernel()
+        fplan = resolve_faults(config.fault_plan)
+        try:
+            if fplan is not None and fplan.compile_fails(backend):
+                raise InjectedFault(f"injected {backend} compile failure")
+            self._fn = self._build_fn(backend)
+        except InjectedFault as e:
+            # the chunk units are torch closures, so the compile rung
+            # sees only the injected failure
+            if backend != "tiles" or not config.backend_fallback:
+                raise
+            self._demote("search", stage="compile", reason=repr(e))
+
+    def _build_fn(self, backend: str):
+        """``backend``'s chunk unit (the ladder re-enters this)."""
         make = {"tiles": backends.make_tiles_chunk_fn,
                 "search": backends.make_search_chunk_fn}[backend]
-        self._fn = make(self.layout)
+        return make(self.layout)
+
+    def _demote(self, to: str, *, stage: str, reason: str) -> None:
+        """One rung of the degradation ladder: re-point the plan at backend
+        ``to`` for good, and record the demotion in ``degradation``,
+        ``stats["faults"]`` and the event trace.  Both backends compute
+        the same integer bins, so demoted results stay bit-identical."""
+        frm = self.backend
+        self.backend = self.executor.backend = to
+        self._fn = self._build_fn(to)
+        self.executor._note("backend_fallback", frm, to, stage,
+                            backend_fallbacks=1)
+        self.degradation.append(dict(rung=f"{frm}->{to}", stage=stage,
+                                     reason=reason))
+
+    def _laddered(self, run, *args):
+        """``run(self, *args)`` under the runtime rung: a tiles run whose
+        failure the executor attributed to chunk dispatch demotes the plan
+        to ``"search"`` (when enabled) and runs again there."""
+        try:
+            return run(self, *args)
+        except (ChunkRetryError, PoolExhaustedError) as e:
+            if self.backend != "tiles" or not self.config.backend_fallback:
+                raise
+            self._demote("search", stage="runtime", reason=repr(e))
+            return run(self, *args)
 
     def _check(self, g: CSRGraph) -> None:
         m = self.meta
@@ -145,18 +218,57 @@ class Plan:
             arrays = arrays._replace(nbr_flag=flags, nbr_cnt=counts)
         return arrays
 
+    # -- locality-aware reordering -------------------------------------------
+
+    def _seed_reorder(self, g: CSRGraph, g_exec: CSRGraph,
+                      perm: np.ndarray) -> None:
+        """Record ``g -> (g_exec, perm)`` in the reorder memo: keyed by
+        graph identity with a weakref guard, bounded to 8 graphs.  The
+        delta path seeds the mutated graph, so a mutation stream reuses
+        one permutation."""
+        memo = self._reorder_memo
+        while len(memo) >= 8:
+            memo.pop(next(iter(memo)))
+        memo[id(g)] = (weakref.ref(g), g_exec, perm)
+
+    def _reordered(self, g: CSRGraph):
+        """``(execution graph, perm)`` under ``config.reorder``: ``(g,
+        None)`` for ``"none"``, else the permutation (``perm[old] = new``)
+        and the relabeled graph, computed on the host once per (plan,
+        graph) and counted in ``stats["reorders"]``."""
+        if self.config.reorder == "none":
+            return g, None
+        hit = self._reorder_memo.get(id(g))
+        if hit is not None and hit[0]() is g:
+            return hit[1], hit[2]
+        perm = compute_permutation(g, self.config.reorder)
+        g_exec = permute_graph(g, perm)
+        self.stats["reorders"] += 1
+        self._seed_reorder(g, g_exec, perm)
+        return g_exec, perm
+
+    def _execute_raw(self, g: CSRGraph) -> np.ndarray:
+        """Relabel (memoized), run the backend under the ladder, and map
+        the raw bins back to original vertex ids."""
+        g_exec, perm = self._reordered(g)
+        raw = self._laddered(backends.run_full, g_exec)
+        return raw if perm is None else self.layout.unpermute(raw, perm, g)
+
+    # -- execution -----------------------------------------------------------
+
     def run(self, g: CSRGraph) -> dict:
         """Run every op in one pass; returns ``{op_name: result}``."""
         return self.layout.finalize(self.run_raw(g), g)
 
     def run_raw(self, g: CSRGraph):
         """Run the pass and return the raw int64 accumulator bins (no
-        finalize); one device→host copy.  This is the state a delta stream
-        carries between mutations (:meth:`apply_delta`)."""
+        finalize), in original vertex ids; one device→host copy.  This is
+        the state a delta stream carries between mutations
+        (:meth:`apply_delta`)."""
         check_poisoned(g)
         self._check(g)
         self.stats["runs"] += 1
-        return backends.run_full(self, g)
+        return self._execute_raw(g)
 
     def run_batch(self, graphs) -> "list[dict]":
         """Run the fused pass on B same-bucket graphs as one batch.
@@ -168,7 +280,8 @@ class Plan:
         its own row of one ``(B, total_bins)`` accumulator, and the batch
         costs **one** device→host copy.  Results equal B sequential
         :meth:`run` calls; returns one ``{op_name: result}`` per graph, in
-        input order."""
+        input order.  Under ``config.reorder`` each member runs relabeled
+        (memoized) and its bins map back before finalize."""
         graphs = list(graphs)
         if not graphs:
             return []
@@ -178,8 +291,12 @@ class Plan:
         self.stats["runs"] += len(graphs)
         self.stats["batch_runs"] += 1
         self.stats["batch_graphs"] += len(graphs)
-        raws = backends.run_batch(self, graphs)
-        return [self.layout.finalize(raw, g) for raw, g in zip(raws, graphs)]
+        pairs = [self._reordered(g) for g in graphs]
+        raws = self._laddered(backends.run_batch, [ge for ge, _ in pairs])
+        return [self.layout.finalize(
+                    raw if perm is None
+                    else self.layout.unpermute(raw, perm, g), g)
+                for raw, (_, perm), g in zip(raws, pairs, graphs)]
 
     def apply_delta(self, g: CSRGraph, delta, raw=None):
         """Advance a graph's bins by one mutation batch, with work
@@ -255,8 +372,8 @@ def compile(graph_meta, ops=("triad_census",),
     """Build (or fetch from cache) the plan for this graph shape + ops.
 
     ``graph_meta`` is a :class:`CSRGraph` or a :class:`GraphMeta`.  The
-    config's backend and device are resolved first (``"auto"`` →
-    ``"tiles"``, ``None`` → ``"cuda"``, which raises without CUDA), so
+    config's backend, device and pool width are resolved first (``"auto"``
+    → ``"tiles"``, ``None`` → ``"cuda"``, which raises without CUDA), so
     equivalent configs share one cache entry.
     """
     config = config or EngineConfig()
@@ -265,7 +382,9 @@ def compile(graph_meta, ops=("triad_census",),
             else GraphMeta.from_graph(graph_meta, k=config.k))
     backend = config.resolve_backend()
     device = config.resolve_device()
-    config = dataclasses.replace(config, backend=backend, device=str(device))
+    config = dataclasses.replace(
+        config, backend=backend, device=str(device),
+        n_executor_devices=config.resolve_executor_devices())
     key = (meta, op_objs, config)
     plan = _PLAN_CACHE.get(key)
     if plan is not None:
@@ -287,20 +406,38 @@ def compile_census(graph_meta, config: Optional[EngineConfig] = None
 
 
 def clear_plan_cache() -> None:
-    """Drop every cached plan and reset the hit/miss/eviction counters."""
+    """Drop every cached plan, each plan's task and reorder memos, and
+    reset the hit/miss/eviction counters."""
+    for p in _PLAN_CACHE.values():
+        p._task_memo.clear()
+        p._reorder_memo.clear()
     _PLAN_CACHE.clear()
     _CACHE_STATS.update(hits=0, misses=0, evictions=0)
 
 
 def plan_cache_stats() -> dict:
     """Cache counters plus one entry per cached plan (LRU order): its
-    bucketized ``meta``, ``backend``, ``device``, ``ops``, ``chunk``, live
-    ``task_memo`` entries and execution counters (``runs``, ``chunks``,
-    ``host_syncs``, ``batch_runs`` / ``batch_graphs``, and ``delta_runs``
-    / ``delta_fulls``: delta applications split by path)."""
+    bucketized ``meta``, ``backend`` (the rung it runs on) with
+    ``requested_backend`` and ``degradation`` (the ladder's record,
+    normally empty), ``device``, ``ops``, ``chunk``, the executor policy
+    (``schedule``, ``n_devices``), ``reorder``, live ``task_memo`` and
+    ``reorder_memo`` entries, and the execution counters (``runs``,
+    ``chunks``, ``host_syncs``, ``batch_runs`` / ``batch_graphs``,
+    ``delta_runs`` / ``delta_fulls``, ``reorders``, ``device_chunks``:
+    chunks per pool slot, ``faults`` / ``fault_events``: the recovery
+    counters and bounded trace)."""
     entries = [dict(meta=dataclasses.asdict(p.meta), backend=p.backend,
+                    requested_backend=p.requested_backend,
+                    degradation=[dict(d) for d in p.degradation],
                     device=str(p.device), ops=p.op_names, chunk=p.chunk,
-                    task_memo=len(p._task_memo), **p.stats)
+                    schedule=p.config.schedule,
+                    n_devices=p.executor.n_devices,
+                    task_memo=len(p._task_memo), reorder=p.config.reorder,
+                    reorder_memo=len(p._reorder_memo),
+                    **{**p.stats,
+                       "device_chunks": dict(p.stats["device_chunks"]),
+                       "faults": dict(p.stats["faults"]),
+                       "fault_events": list(p.stats["fault_events"])})
                for p in _PLAN_CACHE.values()]
     return {**_CACHE_STATS, "size": len(_PLAN_CACHE),
             "capacity": _CACHE_CAPACITY, "entries": entries}

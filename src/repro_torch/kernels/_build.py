@@ -20,6 +20,14 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+
+
+class KernelBuildError(RuntimeError):
+    """A kernel failed to build (``nvcc``) or to load (``ctypes``).  The
+    engine's chunk retry and degradation ladder re-raise it untouched: a
+    missing kernel is never replaced by a path without it."""
+
+
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -33,8 +41,8 @@ def _nvcc() -> str:
             return path
     path = shutil.which("nvcc")
     if path is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
-                           "machine with the CUDA toolkit")
+        raise KernelBuildError("nvcc not found: the CUDA kernels are built "
+                               "on a machine with the CUDA toolkit")
     return path
 
 
@@ -66,8 +74,8 @@ def build(name: str) -> "tuple[Path, str]":
     proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
                           capture_output=True, text=True)
     if proc.returncode:
-        raise RuntimeError(f"nvcc failed on {src.name} "
-                           f"(exit {proc.returncode}):\n{proc.stderr}")
+        raise KernelBuildError(f"nvcc failed on {src.name} "
+                               f"(exit {proc.returncode}):\n{proc.stderr}")
     log = proc.stdout + proc.stderr
     log_tmp = log_path.with_name(f"{log_path.name}.{os.getpid()}.tmp")
     log_tmp.write_text(log)
@@ -79,4 +87,8 @@ def build(name: str) -> "tuple[Path, str]":
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """The built library for ``csrc/<name>.cu``, loaded once per process."""
-    return ctypes.CDLL(str(build(name)[0]))
+    path = build(name)[0]
+    try:
+        return ctypes.CDLL(str(path))
+    except OSError as e:
+        raise KernelBuildError(f"cannot load {path.name}: {e}") from e

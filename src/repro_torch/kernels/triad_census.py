@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -22,6 +23,9 @@ from . import _build
 from .ref import census_csr_ref, census_tiles_ref
 
 SENTINEL = 2**30
+# the executor's pool workers launch from several threads: the launch
+# counters' read-modify-write takes this lock
+_COUNT_LOCK = threading.Lock()
 
 
 @functools.lru_cache(maxsize=None)
@@ -187,7 +191,8 @@ def census_csr(u, v, n: int, arrays, *, k: int,
     if err:
         raise RuntimeError("census_csr launch failed: "
                            + lib.census_csr_error_string(err).decode())
-    census_csr.launches += 1
+    with _COUNT_LOCK:
+        census_csr.launches += 1
     return out
 
 

@@ -6,8 +6,10 @@ fleet front door: requests, each naming the GraphOp analytics it wants,
 are grouped by (plan-cache bucket, ops) and run as fused batches through
 ``Plan.run_batch``, with admission control (:class:`AdmissionError`),
 flush-round deadlines (:class:`DeadlineExceeded` completions), member-wise
-isolation of poisoned graphs, and subscribed sessions over evolving
-graphs.
+isolation of poisoned graphs, subscribed sessions over evolving graphs
+(rolled back on a failed mutation), a concurrent multi-group flush under
+the dynamic executor schedule, and ``stats()["health"]`` / ``devices``
+recovery and occupancy counters.
 """
 from .census_service import (AdmissionError, CensusCompletion,
                              CensusService, DeadlineExceeded, ServiceConfig)

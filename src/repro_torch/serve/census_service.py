@@ -30,7 +30,14 @@ Design properties:
 
 Batches run synchronously inside ``submit``/``flush`` on the caller's
 thread, one group after another (the device work itself is still
-asynchronous under the engine's bounded in-flight window).
+asynchronous under the engine's bounded in-flight window).  One
+exception: under the dynamic executor schedule
+(``EngineConfig(schedule="dynamic")``) :meth:`CensusService.flush` drains
+a multi-group backlog concurrently — each (bucket, ops) group on its own
+thread, at most the pool width at a time, its chunks work-queued over
+the pool.  Per-slot chunk counts (``devices``) and the engine's recovery
+counters (retries, quarantines, fallbacks) surface in
+:meth:`CensusService.stats`.
 
 Beyond the stateless request stream the service runs **subscribed
 sessions** over evolving graphs: :meth:`CensusService.subscribe` pins a
@@ -44,6 +51,7 @@ reads fresh results from the session's raw bins.
 from __future__ import annotations
 
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Iterable, List, NamedTuple, Optional, Tuple
 
 from ..core.delta import GraphDelta, apply_delta_csr
@@ -136,8 +144,8 @@ class ServiceConfig:
             member-wise, each member up to ``max_attempts`` times, so
             one poison graph surfaces as a single failed
             :class:`CensusCompletion` (with ``error`` payload) instead
-            of taking down its batch peers.  The retries run on the same
-            plan and backend.
+            of taking down its batch peers.  Independent of the engine's
+            per-chunk ``EngineConfig.max_attempts``.
         reject_policy: what a full pending queue does to a new submit —
             ``"reject"`` raises :class:`AdmissionError` (shed load onto
             the caller), ``"flush_oldest"`` synchronously flushes the
@@ -181,7 +189,8 @@ class CensusCompletion(NamedTuple):
     op's bare result object — a ``CensusResult`` for ``triad_census`` —
     and for a multi-op request it is the fused ``{op_name: result}``
     dict.  A request that *failed* (poison graph, exhausted retries, a
-    missed deadline, a failed group) still completes — with
+    missed deadline, a failed group or dead group thread) still
+    completes — with
     ``result=None`` and the failure as its ``error`` payload — so one
     bad request never silently drops, and never takes its batch peers'
     results down with it."""
@@ -246,13 +255,15 @@ class CensusService:
         self._completed: List[CensusCompletion] = []
         self._seq = 0
         self._bucket_stats: Dict[GraphMeta, dict] = {}
+        self._device_chunks: Dict[int, int] = {}
         self._sessions: Dict[int, _Session] = {}
         self._session_seq = 0
         # flush-round clock (one tick per executed/failed group) — the
         # clockless time base request deadlines are measured against.
         self._rounds = 0
-        self._health = dict(rejections=0, poisoned=0, expired=0,
-                            batch_failures=0, group_failures=0,
+        self._health = dict(retries=0, quarantines=0, backend_fallbacks=0,
+                            schedule_fallbacks=0, rejections=0, poisoned=0,
+                            expired=0, batch_failures=0, group_failures=0,
                             mutate_failures=0)
 
     # -- request path --------------------------------------------------------
@@ -469,14 +480,41 @@ class CensusService:
         return self._session_results(s)
 
     def flush(self) -> List[CensusCompletion]:
-        """Execute every pending partial group, in submission order, then
-        drain completions.  A group that fails as a whole completes each
-        of its requests with the error payload and re-raises; per-request
+        """Execute every pending partial group, then drain completions.
+
+        Sequentially, in submission order, by default: a group that fails
+        as a whole completes each of its requests with the error payload
+        and re-raises.  Under the dynamic executor schedule a multi-group
+        backlog drains **concurrently**: every group's plan is compiled
+        first (the plan cache is touched only from this thread, and a
+        compile failure leaves every request pending), then each group
+        runs on its own thread, at most the pool width at a time.  Every
+        group is recorded in submission order — results for the live
+        ones, explicit error completions for a dead one — so ``pending``
+        is 0 afterwards and peers keep their results.  Per-request
         failures inside a live group (poison graphs) are isolated
         member-wise by :meth:`_execute_group`."""
         self._expire_overdue()
-        for key in list(self._pending):
-            self._flush_group(key)
+        keys = list(self._pending)
+        if len(keys) > 1 and self.config.census.schedule == "dynamic":
+            plans = {key: compile(key[0], key[1], self.config.census)
+                     for key in keys}
+            jobs = []
+            for key in keys:
+                self._first_seq.pop(key)
+                jobs.append((key, self._pending.pop(key)))
+            # more group threads than pool slots would only oversubscribe
+            # the pool (each group's executor starts one worker a slot)
+            width = max(p.executor.n_devices for p in plans.values())
+            with ThreadPoolExecutor(max_workers=min(len(jobs), width)) as ex:
+                futs = [ex.submit(self._execute_group, plans[key], group)
+                        for key, group in jobs]
+                outs = [f.exception() or f.result() for f in futs]
+            for (key, group), out in zip(jobs, outs):
+                self._record_outcome(key, group, out)
+        else:
+            for key in keys:
+                self._flush_group(key)
         return self.poll()
 
     def run_fleet(self, graphs: Iterable[CSRGraph], ops=None) -> List[Any]:
@@ -530,8 +568,13 @@ class CensusService:
         individually on the same plan — up to
         ``ServiceConfig.max_attempts`` each — so healthy peers still
         produce results and only the bad request carries an error
-        payload.  No exception escapes for per-member failures."""
+        payload.  No exception escapes for per-member failures.  Safe to
+        run beside other groups: distinct (bucket, ops) keys map to
+        distinct plans, and service bookkeeping stays on the flush
+        caller's thread (:meth:`_record_outcome`)."""
         before = {k: plan.stats[k] for k in ("host_syncs", "chunks")}
+        before_dev = dict(plan.stats["device_chunks"])
+        before_faults = dict(plan.stats["faults"])
         graphs = [r.graph for r in group]
         errors: list = [None] * len(group)
         batch_failed = 0
@@ -550,14 +593,21 @@ class CensusService:
                         break
                     except Exception as e:
                         errors[i] = e
+        dev = {d: c - before_dev.get(d, 0)
+               for d, c in plan.stats["device_chunks"].items()
+               if c - before_dev.get(d, 0)}
+        faults = {k: v - before_faults.get(k, 0)
+                  for k, v in plan.stats["faults"].items()}
         return dict(results=results, errors=errors, batch_failed=batch_failed,
                     host_syncs=plan.stats["host_syncs"] - before["host_syncs"],
-                    chunks=plan.stats["chunks"] - before["chunks"])
+                    chunks=plan.stats["chunks"] - before["chunks"],
+                    device_chunks=dev, faults=faults)
 
     def _record_outcome(self, key, group, out) -> None:
-        """Fold one executed (or failed) group into service state.  ``out``
-        is :meth:`_execute_group`'s dict for a live group, or the
-        exception that failed it — in which case every request completes
+        """Fold one executed (or failed) group into service state, always
+        on the flush caller's thread.  ``out`` is :meth:`_execute_group`'s
+        dict for a live group, or the exception that failed it (or killed
+        its thread) — in which case every request completes
         explicitly with that error as payload (the queue was already
         popped; nothing stays pending)."""
         meta, ops_t = key
@@ -577,6 +627,11 @@ class CensusService:
         st["batched_graphs"] += len(group)
         st["host_syncs"] += out["host_syncs"]
         st["chunks"] += out["chunks"]
+        for d, c in out["device_chunks"].items():
+            self._device_chunks[d] = self._device_chunks.get(d, 0) + c
+        for k in ("retries", "quarantines", "backend_fallbacks",
+                  "schedule_fallbacks"):
+            self._health[k] += out["faults"][k]
         self._health["batch_failures"] += out["batch_failed"]
         self._health["poisoned"] += sum(1 for e in errors if e is not None)
         self._completed.extend(
@@ -593,14 +648,19 @@ class CensusService:
         1.0 means every batch left full), the host syncs / chunks its
         batches cost, and ``by_ops`` (requests per ops tuple — the
         mixed-analytic split).  ``mean_batch`` is the fleet-wide average
-        batch width.  ``sessions`` maps each live subscribed-session id
+        batch width.  ``devices`` maps each executor pool slot to the
+        chunks the service dispatched there (all on slot 0 under the
+        static schedule).  ``sessions`` maps each live subscribed-session id
         to its mutation counters — ``mutations`` split into ``deltas``
         (affected-subset path), ``fulls`` (cost-model fallback) and
         ``recompiles`` (bucket outgrowth), plus ``failed`` (mutations
         rolled back to the pre-mutation snapshot) — plus the session's
         current graph size and ops.  ``rounds`` is the flush-round clock
         deadlines are measured against, and ``health`` counts the
-        service's recoveries: ``rejections`` (admission control),
+        recoveries: the engine's ``retries`` / ``quarantines`` /
+        ``backend_fallbacks`` / ``schedule_fallbacks`` (summed from the
+        plans' ``stats["faults"]``), and the service's ``rejections``
+        (admission control),
         ``expired`` (missed deadlines), ``batch_failures`` (groups that
         retried member-wise), ``poisoned`` (requests completing with
         error payloads), ``group_failures`` (groups that failed as a
@@ -624,6 +684,7 @@ class CensusService:
             mean_batch=(total_graphs / total_batches
                         if total_batches else 0.0),
             buckets=buckets,
+            devices=dict(self._device_chunks),
             rounds=self._rounds,
             health=dict(self._health),
             sessions={sid: dict(mutations=s.mutations, deltas=s.deltas,

@@ -187,9 +187,13 @@ def test_service_completes_as_the_jax_service(scenario, backend):
     st = svc.stats()
     assert _bucket_counts(st) == want_buckets
     assert st["rounds"] == want_rounds and st["pending"] == 0
-    assert set(st["health"]) == {"rejections", "poisoned", "expired",
+    assert set(st["health"]) == {"retries", "quarantines",
+                                 "backend_fallbacks", "schedule_fallbacks",
+                                 "rejections", "poisoned", "expired",
                                  "batch_failures", "group_failures",
                                  "mutate_failures"}
+    assert all(st["health"][k] == 0 for k in (
+        "retries", "quarantines", "backend_fallbacks", "schedule_fallbacks"))
     # every completed census equals the oracle
     for entry in log:
         for rid, ops, res, err in (entry if isinstance(entry, list) else ()):
