@@ -1524,14 +1524,21 @@ def reorder_phase(torch, dev, g, rates, raw_fused):
         check(np.array_equal(raw, raw_census)
               and plan.stats["reorders"] == 1,
               f"{strategy}: census bins != unreordered, {plan.stats}")
-        census_csr.launches = 0
         base_s, warm_s = warm_times(torch, [lambda: base.run_raw(g),
                                             lambda: plan.run_raw(g)], 3)
-        launches[strategy] = census_csr.launches // 3 - base.stats[
-            "chunks"] // base.stats["runs"]
         check(plan.stats["reorders"] == 1 and plan.stats["host_syncs"] == 4,
               f"{strategy}: warm runs reordered again, {plan.stats}")
+        # the launches of one warm run of the reordered plan alone
         st = tiles_stream(plan, g_x)
+        chunks0 = plan.stats["chunks"]
+        torch.cuda.synchronize()
+        census_csr.launches = 0
+        plan.run_raw(g)
+        launches[strategy] = census_csr.launches
+        check(launches[strategy] == len(st.tasks)
+              == plan.stats["chunks"] - chunks0,
+              f"{strategy}: {launches[strategy]} launches, "
+              f"{len(st.tasks)} tasks, {plan.stats}")
         buckets = csr_kernel_phase(torch, g_x, st, st.tasks, rates,
                                    f"slashdot_{strategy}")
         emit("reorder", graph="slashdot", strategy=strategy,

@@ -68,14 +68,15 @@ def _placer(arrays: GraphArrays, *tensors):
     return place
 
 
-def _span_tasks(plan, g: CSRGraph, u: np.ndarray, v: np.ndarray,
-                chunk: int) -> "list[ChunkTask]":
-    """Chunk spans over the dyad list ``(u, v)``: fixed-size under the
-    static schedule, equal predicted work under the dynamic one (the
-    ``config.weight_model`` cost of each dyad,
+def _span_tasks(plan, g: CSRGraph, D: int, chunk: int,
+                dyads=None) -> "list[ChunkTask]":
+    """Chunk spans over a list of ``D`` dyads: fixed-size under the static
+    schedule, equal predicted work under the dynamic one (the
+    ``config.weight_model`` cost of each dyad of ``dyads``, ``g``'s
+    canonical dyads when None — derived on the host only then,
     :func:`~repro_torch.core.balance.chunk_bounds_by_cost`); no key."""
-    D = len(u)
     if plan.config.schedule == "dynamic" and D:
+        u, v = canonical_dyads(g) if dyads is None else dyads
         w = balance.dyad_weights(g, u, v, plan.config.weight_model)
         bounds = balance.chunk_bounds_by_cost(w, chunk)
         cum = np.concatenate([[0.0], np.cumsum(w, dtype=np.float64)])
@@ -124,7 +125,7 @@ def _search_tasks(plan, g: CSRGraph, u: np.ndarray, v: np.ndarray,
     deg = g.host.nbr_deg.astype(np.int64)
     cum = np.concatenate([[0], np.cumsum(deg[u] + deg[v])])
     return [t._replace(key=int(cum[t.end] - cum[t.start]))
-            for t in _span_tasks(plan, g, u, v, chunk)]
+            for t in _span_tasks(plan, g, len(u), chunk, (u, v))]
 
 
 def _run_search(plan, g: CSRGraph, arrays, du, dv, tasks, acc) -> None:
@@ -306,7 +307,7 @@ def tiles_stream(plan, g: CSRGraph) -> TilesStream:
     if not census:
         tasks = _memo_tasks(plan, g, ("tiles-flat", chunk), lambda: [
             t._replace(key=ks[-1])
-            for t in _span_tasks(plan, g, *canonical_dyads(g), chunk)])
+            for t in _span_tasks(plan, g, g.n_dyads, chunk)])
         return TilesStream(arrays, du, dv, tasks, chunk, block)
     su, sv, _ = sort_dyads_by_bucket(arrays.nbr_deg, arrays.out_ptr, du, dv,
                                      g.n_dyads, ks=ks)
@@ -357,7 +358,7 @@ def subset_tiles(plan, g: CSRGraph, u: np.ndarray, v: np.ndarray,
             need[order] if plan.config.schedule == "dynamic" else None)
     else:
         tasks = [t._replace(key=ks[-1])
-                 for t in _span_tasks(plan, g, u, v, chunk)]
+                 for t in _span_tasks(plan, g, len(u), chunk, (u, v))]
     su, sv = _upload_dyads(plan, u, v)
     _dispatch_tiles(plan, g, TilesStream(arrays, su, sv, tasks, chunk, block),
                     acc)

@@ -66,6 +66,10 @@ class EngineConfig:
             per-dyad bucket needs) and work-queues them over the
             executor's device pool, the analogue of the paper's OpenMP
             dynamic scheduling (:mod:`repro_torch.engine.executor`).
+            ``"dynamic"`` is kept for parity with the JAX package: on a
+            pool of one H100 it has no second device to balance and ran
+            1.9-2.3x slower than ``"static"`` (``PERF.md``), so it is no
+            default until a wider pool is measured to gain from it.
         n_executor_devices: pool width under ``schedule="dynamic"``
             (normalized to 1 under ``"static"``).  On ``"cuda"`` it is
             clamped to ``torch.cuda.device_count()`` and ``None`` means
@@ -78,14 +82,17 @@ class EngineConfig:
             retry).  A chunk's contribution is folded only when its
             attempt succeeds, so recovered runs are bit-identical.
         backend_fallback: enable the ``tiles -> search`` rung of the
-            degradation ladder: a tiles compile failure, or a run whose
-            chunks exhaust their retries, demotes the plan to
-            ``"search"`` (recorded in ``Plan.degradation`` and
+            degradation ladder: an injected tiles compile failure, or a
+            run whose chunks exhaust their retries on injected faults
+            only (:class:`~repro_torch.engine.faults.FaultPlan`),
+            demotes the plan to ``"search"`` (recorded in
+            ``Plan.degradation`` and
             ``stats["faults"]["backend_fallbacks"]``).  **Off by default
             in the port** (on in the JAX package): on the card a demotion
             is a path that runs without the CUDA kernel, so a failing
             kernel re-raises unless the caller asks for the rung.  A
-            kernel build or load error is never caught by any rung.
+            real launch failure, a kernel build or load error and an
+            asynchronous device fault are never caught by any rung.
         schedule_fallback: enable the ``dynamic -> static`` rung: a
             dynamic pool whose devices are all lost or quarantined re-runs
             the task list in order on the primary device.
@@ -93,7 +100,9 @@ class EngineConfig:
             ``"degree"``, ``"bfs"`` or ``"rcm"`` (see
             :mod:`repro_torch.core.reorder`); memoized per (plan, graph),
             results bit-identical to ``"none"``, deltas stay in original
-            ids.
+            ids.  Kept for parity: on an H100 every strategy made the
+            Slashdot census kernel 35-49 % slower (``PERF.md``), so the
+            default stays ``"none"``.
         fault_plan: a :class:`~repro_torch.engine.faults.FaultPlan`
             injected into this plan (``None`` = the
             ``REPRO_TORCH_FAULT_PLAN`` environment plan, if any; an inert

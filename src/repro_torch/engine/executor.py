@@ -99,7 +99,25 @@ class ChunkRetryError(RuntimeError):
 class PoolExhaustedError(RuntimeError):
     """Every slot of a dynamic pool was lost or quarantined while tasks
     remained.  With ``EngineConfig.schedule_fallback`` the executor turns
-    it into the static single-device re-run."""
+    it into the static single-device re-run.  Every dispatch or placement
+    failure of the run is in ``.attempts``."""
+
+    def __init__(self, message, attempts=()):
+        self.attempts = attempts
+        super().__init__(message)
+
+
+def injected_only(e: BaseException) -> bool:
+    """Whether every failure behind a :class:`ChunkRetryError` or
+    :class:`PoolExhaustedError` was injected by the plan's ``FaultPlan``
+    (:class:`~repro_torch.engine.faults.InjectedFault`, which includes
+    :class:`~repro_torch.engine.faults.DeviceLostError`).  The runtime
+    rung of the degradation ladder demotes only then: a real launch
+    failure re-raises."""
+    causes = list(getattr(e, "attempts", ()))
+    if not causes and e.__cause__ is not None:
+        causes = [e.__cause__]
+    return bool(causes) and all(isinstance(c, InjectedFault) for c in causes)
 
 
 def _raise_worker_errors(errors):
@@ -311,6 +329,8 @@ class Executor:
         fatal: list = []
         alive = set(range(n))
         failures = [0] * n
+        seen: list = []  # every failure of the run, in order
+        tried: dict = {}  # task -> its failed attempts
 
         def quarantine(i: int, reason: str) -> None:  # callers hold qlock
             alive.discard(i)
@@ -318,12 +338,14 @@ class Executor:
             if not alive and queue and not fatal:
                 fatal.append(PoolExhaustedError(
                     f"all {n} pool devices lost or quarantined with "
-                    f"{len(queue)} task(s) remaining"))
+                    f"{len(queue)} task(s) remaining", attempts=seen))
 
         def on_failure(i, t, attempt, e) -> None:  # callers hold qlock
             if not _retryable(e):
                 fatal.append(e)
                 return
+            seen.append(e)
+            tried.setdefault(t, []).append(e)
             if isinstance(e, DeviceLostError):
                 queue.append((t, attempt))
                 quarantine(i, "device_loss")
@@ -332,7 +354,7 @@ class Executor:
             if attempt >= self.max_attempts:
                 err = ChunkRetryError(
                     f"chunk [{t.start}, {t.end}) failed after {attempt} "
-                    "attempt(s) across the device pool")
+                    "attempt(s) across the device pool", attempts=tried[t])
                 err.__cause__ = e
                 fatal.append(err)
                 return
@@ -348,9 +370,10 @@ class Executor:
                     try:
                         ctx = place(dev)
                         acc = torch.zeros_like(init, device=dev)
-                    except Exception:  # noqa: BLE001 — a slot whose
-                        # context cannot be placed is dead on arrival
+                    except Exception as e:  # noqa: BLE001 — a slot
+                        # whose context cannot be placed is dead on arrival
                         with qlock:
+                            seen.append(e)
                             quarantine(i, "placement_failure")
                         return
                     window: collections.deque = collections.deque()

@@ -22,9 +22,12 @@ fails to build, or whose run ends in a chunk that exhausted its retries
 ``"search"`` for good, each demotion counted in
 ``stats["faults"]["backend_fallbacks"]``.  The port's default is
 ``False``: on the card that rung is a path without the CUDA kernel, so
-by default a failing kernel re-raises.  A kernel build or load error
+by default a failing kernel re-raises.  Even when enabled, both rungs
+take only failures that the plan's ``FaultPlan`` injected
+(:func:`~repro_torch.engine.executor.injected_only`): a real launch
+failure of ``census_csr``, a kernel build or load error
 (:class:`~repro_torch.kernels._build.KernelBuildError`) and an
-asynchronous device fault are never demoted.  The ``dynamic -> static``
+asynchronous device fault always re-raise.  The ``dynamic -> static``
 rung lives in the executor.
 
 **Reordering.**  Under ``config.reorder`` each graph is relabeled once
@@ -53,7 +56,7 @@ from . import backends
 from .config import EngineConfig
 from .delta import run_delta
 from .executor import (ChunkRetryError, Executor, PoolExhaustedError,
-                       pool_devices)
+                       injected_only, pool_devices)
 from .faults import InjectedFault, check_poisoned, resolve_faults
 from .ops import OpLayout, resolve_ops
 
@@ -168,13 +171,16 @@ class Plan:
                                      reason=reason))
 
     def _laddered(self, run, *args):
-        """``run(self, *args)`` under the runtime rung: a tiles run whose
-        failure the executor attributed to chunk dispatch demotes the plan
-        to ``"search"`` (when enabled) and runs again there."""
+        """``run(self, *args)`` under the runtime rung: a tiles run that
+        ended in chunk-dispatch failures, every one of them injected by
+        the plan's ``FaultPlan``, demotes the plan to ``"search"`` (when
+        enabled) and runs again there.  A real failure of the kernel's
+        launch re-raises on any device."""
         try:
             return run(self, *args)
         except (ChunkRetryError, PoolExhaustedError) as e:
-            if self.backend != "tiles" or not self.config.backend_fallback:
+            if (self.backend != "tiles" or not self.config.backend_fallback
+                    or not injected_only(e)):
                 raise
             self._demote("search", stage="runtime", reason=repr(e))
             return run(self, *args)

@@ -378,6 +378,42 @@ def test_failed_census_launch_folds_the_chunk_exactly_once(monkeypatch):
 
 
 @pytest.mark.parametrize("schedule,pool", [("static", 1), ("dynamic", 3)])
+def test_real_launch_failure_is_never_demoted(monkeypatch, schedule, pool):
+    """A census_csr launch that fails for real (not by the FaultPlan) is
+    retried, then re-raises even with the runtime rung enabled."""
+    def failing(*args, **kwargs):
+        raise RuntimeError("census_csr launch failed: error 700")
+
+    monkeypatch.setattr(backends, "census_csr", failing)
+    g = graph()
+    plan = compile(g, ("triad_census",), cfg(
+        "tiles", backend_fallback=True, schedule=schedule,
+        n_executor_devices=pool))
+    with pytest.raises(ChunkRetryError) as exc:
+        plan.run(g)
+    assert all(not isinstance(a, InjectedFault)
+               for a in exc.value.attempts) and exc.value.attempts
+    assert plan.backend == "tiles" and not plan.degradation
+    assert plan.stats["faults"]["backend_fallbacks"] == 0
+    assert plan.stats["faults"]["retries"] > 0
+
+
+def test_injected_only_reads_every_failure_behind_the_error():
+    from repro_torch.engine.executor import injected_only
+
+    real, fake = RuntimeError("launch failed"), InjectedFault("injected")
+    assert injected_only(ChunkRetryError("x", attempts=[fake, fake]))
+    assert injected_only(PoolExhaustedError(
+        "x", attempts=[DeviceLostError("lost"), fake]))
+    assert not injected_only(ChunkRetryError("x", attempts=[fake, real]))
+    assert not injected_only(PoolExhaustedError("x", attempts=[real]))
+    assert not injected_only(PoolExhaustedError("x"))
+    chained = ChunkRetryError("x")
+    chained.__cause__ = fake
+    assert injected_only(chained)
+
+
+@pytest.mark.parametrize("schedule,pool", [("static", 1), ("dynamic", 3)])
 def test_kernel_build_error_is_never_retried_or_demoted(monkeypatch,
                                                         schedule, pool):
     def broken(*args, **kwargs):
@@ -569,3 +605,24 @@ def test_cuda_recovery_and_rungs_through_the_kernel(cuda_device):
     census_csr.launches = 0
     np.testing.assert_array_equal(plan.run_raw(g), clean)
     assert census_csr.launches == 0 and plan.backend == "search"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["static", "dynamic"])
+def test_cuda_real_launch_failure_raises_with_the_rung_on(cuda_device,
+                                                          monkeypatch,
+                                                          schedule):
+    """On the card a failing census_csr launch is never replaced by the
+    search backend, even with ``backend_fallback=True``."""
+    def failing(*args, **kwargs):
+        raise RuntimeError("census_csr launch failed: error 700")
+
+    monkeypatch.setattr(backends, "census_csr", failing)
+    g = tgen.rmat(10, edge_factor=8, seed=1, device=cuda_device)
+    plan = compile(g, ("triad_census",), EngineConfig(
+        backend="tiles", device=cuda_device, backend_fallback=True,
+        schedule=schedule))
+    with pytest.raises(ChunkRetryError):
+        plan.run_raw(g)
+    assert plan.backend == "tiles" and not plan.degradation
+    assert plan.stats["faults"]["backend_fallbacks"] == 0
