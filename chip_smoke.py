@@ -65,7 +65,8 @@ script exits non-zero and prints no result.  Phases:
              at the default threshold, each poll equal to a full
              recompute, the delta/full split matching the fractions.
    faults_clean — after every normal phase (small, full, amazon, fused,
-             fleet, session, dynamic, reorder): each cached plan has all
+             fleet, session, dynamic, reorder, partition, each patents
+             run): each cached plan has all
              six fault counters at 0 and no demotion, and each service's
              engine recoveries are 0.
    dynamic — Slashdot and Amazon under ``schedule="dynamic"`` on the
@@ -90,6 +91,25 @@ script exits non-zero and prints no result.  Phases:
              demoted once to ``"search"`` with no census_csr launch after;
              a dynamic service of 16 requests over 2 buckets whose
              ``retries`` health counter equals the selected chunks.
+   partition — Slashdot in 8 shards (``EngineConfig(partitions=8)``), the
+             four ops: pool on one slot, pool under the dynamic schedule on
+             two slots of the card, serial, serial with spill, rcm; each
+             bit-equal to the unpartitioned run, one copy, census_csr
+             launches equal to the shard tasks, one staging per shard and
+             no device-to-device copy, cold and warm in turns with the
+             unpartitioned plan, peak memory; census_csr against its plain
+             version on every chunk of every shard; one ``apply_delta``
+             (k = 64) on the partitioned plan against the full recompute;
+             chunk faults (seed 16, rate 0.2) recovered bit-equal.
+   patents — the Patents stand-in at its published size (n 4,194,304,
+             16,493,605 dyads), built once with ``from_edges_mmap``:
+             unpartitioned, P = 4 serial with spill, P = 4 pool; bins
+             bit-equal, the census tied to the dyad census counted on the
+             host (``dyad_identity``), launches equal to the tasks,
+             host partition seconds, warm times, peak memory, the shard and
+             staging bytes; census_csr against its plain version on the
+             first and last chunk of each bucket of each shard.  The graph
+             and its files go before the flash phase.
 5. flash_kernel — the flash-attention kernel against its plain version
              (``flash_attention_ref``): bf16 at the qwen3-4b prefill shape
              (B 4, T 2048, S 2080, H 32, Hkv 8, D 128) within 2e-2, f32
@@ -112,8 +132,8 @@ script exits non-zero and prints no result.  Phases:
              flash path against the dense path (<= 1e-3), and decode
              logits against the full forward at every position (<= 1e-3).
 8. the kernels line (census_csr's row adds its launches in the fused,
-   fleet, session, dynamic, reorder and faults phases), then the result
-   line.
+   fleet, session, dynamic, reorder, faults, partition and patents
+   phases), then the result line.
 
 Exits non-zero without a CUDA device.
 """
@@ -770,6 +790,40 @@ FOOTPRINTS = (4, 64, 1024)  # arcs removed and added per delta
 
 def c3(n):
     return n * (n - 1) * (n - 2) // 6
+
+
+def dyad_identity(g, counts):
+    """The triad census tied to the dyad census counted on the host from
+    ``g``'s arcs: every dyad lies in ``n - 2`` triads, so for each dyad
+    kind (mutual, asymmetric, null) the sum over triad types of (dyads of
+    that kind in the type, the digits of its MAN name) x count equals
+    that kind's dyad count x (n - 2).  The mutual and asymmetric sums
+    read bins 012..300 only, the null sum bin 003 too, so a wrong bin
+    anywhere breaks one of them; together they give Σ counts = C(n, 3).  Returns ``{kind: (census side, dyad
+    side)}`` as exact ints, and the host's M + A (the canonical dyads).
+    Types with the same MAN digits (021D/U/C, 111D/U, 030T/C, 120D/U/C)
+    are not told apart: a count moved between two of them passes."""
+    import numpy as np
+
+    from repro_torch.core import TRIAD_NAMES
+    from repro_torch.core.graph import arcs_host
+
+    src, dst = arcs_host(g)
+    keys = np.sort(src * g.n + dst)
+    rev = dst * g.n + src
+    del src, dst
+    at = np.searchsorted(keys, rev).clip(max=len(keys) - 1)
+    mutual_arcs = int(np.count_nonzero(keys[at] == rev))
+    del keys, rev, at
+    m_dyads = mutual_arcs // 2
+    a_dyads = g.m - mutual_arcs
+    dyads = dict(M=m_dyads, A=a_dyads,
+                 N=g.n * (g.n - 1) // 2 - m_dyads - a_dyads)
+    counts = [int(c) for c in counts]
+    return {kind: (sum(int(name[i]) * c
+                       for name, c in zip(TRIAD_NAMES, counts)),
+                   dyads[kind] * (g.n - 2))
+            for i, kind in enumerate("MAN")}, m_dyads + a_dyads
 
 
 def warm_times(torch, fns, reps):
@@ -1575,6 +1629,342 @@ def reorder_phase(torch, dev, g, rates, raw_fused):
     return launches
 
 
+PARTITIONS = 8  # Slashdot's shards in the partition phase
+PATENTS_PARTITIONS = 4
+# the partition phase's runs: name -> EngineConfig fields beside partitions
+PARTITION_RUNS = {
+    "pool": {},
+    "pool_dynamic": dict(schedule="dynamic"),
+    "serial": dict(partition_mode="serial"),
+    "serial_spill": dict(spill=True),
+    "rcm": dict(reorder="rcm"),
+}
+# runs whose pool is widened to this many slots of the one card: the
+# config clamps n_executor_devices to the card count, so the smoke sets
+# the plan's executor pool itself
+SHARED_SLOTS = {"pool_dynamic": 2}
+
+
+def shard_streams(plan, g):
+    """Each non-empty shard of ``g`` as the engine stages it for ``plan``:
+    ``(shard, TilesStream)`` with the shard's local arrays and flags, its
+    bucket-sorted dyads and its tasks."""
+    from repro_torch.core.partition import shard_dyads
+    from repro_torch.engine import partition as tpart
+    from repro_torch.engine.backends import (TilesStream, subset_schedule,
+                                             tiles_geometry)
+
+    part = tpart.plan_partition(plan, g)
+    geom = tpart._Geometry(plan, g, part)
+    block, chunk, _ = tiles_geometry(plan)
+    for shard in part.shards:
+        if shard.n_dyads:
+            u, v, tasks = subset_schedule(
+                plan, g, *shard_dyads(g, shard.lo, shard.hi))
+            arrays, su, sv = tpart._host_ctx(plan, g, shard, geom, u, v,
+                                             plan.device)
+            yield shard, TilesStream(arrays, su, sv, tasks, chunk, block)
+
+
+def shard_kernel_check(torch, plan, g, rates, label, ends_only):
+    """census_csr against its plain version on every chunk of every shard
+    (``ends_only``: the first and last chunk of each bucket of each
+    shard), bit-equal, timed beside its bound.  Returns the totals."""
+    out = dict(chunks=0, kernel_ms=0.0, plain_ms=0.0, bound_ms=0.0,
+               max_abs_err=0)
+    for shard, st in shard_streams(plan, g):
+        tasks = st.tasks
+        if ends_only:
+            ends = {}
+            for t in tasks:
+                ends.setdefault(t.key, []).append(t)
+            tasks = [t for ts in ends.values()
+                     for t in dict.fromkeys((ts[0], ts[-1]))]
+        buckets = csr_kernel_phase(torch, g, st, tasks, rates,
+                                   f"{label}_shard{shard.index}")
+        for b in buckets.values():
+            out["chunks"] += b["chunks"]
+            out["kernel_ms"] += b["kernel_ms"]
+            out["plain_ms"] += b["plain_ms"]
+            out["bound_ms"] += b["bound_ms"]
+            out["max_abs_err"] = max(out["max_abs_err"], b["max_abs_err"])
+        del st
+    return out
+
+
+def dispatch_s(ps):
+    """The shards' dispatch intervals of a partitioned run, summed: on one
+    slot, the part of its wall time not spent building, staging and
+    sorting shards on the host."""
+    return sum(t["end"] - t["start"] for t in ps["shard_times"].values())
+
+
+def check_partition_run(plan, raw, want, launches, label):
+    """A partitioned run: bins equal to ``want``, one copy, launches equal
+    to the shard tasks and the chunks, one staging per non-empty shard,
+    no copy between devices on one card.  Returns the shard tasks."""
+    import numpy as np
+
+    ps = plan.stats["partition"]
+    tasks = sum(t["tasks"] for t in ps["shard_times"].values())
+    nonempty = sum(1 for d in ps["shard_dyads"] if d)
+    check(np.array_equal(raw, want),
+          f"{label}: bins {raw.tolist()} != unpartitioned {want.tolist()}")
+    check(launches == tasks > 0 and ps["h2d_puts"] == nonempty
+          and ps["d2d_puts"] == 0,
+          f"{label}: {launches} launches, {tasks} shard tasks, "
+          f"{ps['h2d_puts']} stagings of {nonempty} shards, "
+          f"{ps['d2d_puts']} device copies")
+    return tasks
+
+
+def partition_phase(torch, dev, g, rates, raw_fused):
+    """Slashdot in P = 8 shards, the four ops, tiles: pool (one slot),
+    pool under the dynamic schedule on two slots of the card, serial,
+    serial with spill, and rcm relabeling, each bit-equal to the
+    unpartitioned fused run with one copy and one census_csr launch per
+    shard task, cold and warm in turns with it; census_csr against its
+    plain version on every chunk of every shard; one apply_delta (k = 64)
+    against the full recompute; then chunk faults.  Returns the
+    census_csr launches of each path."""
+    import numpy as np
+
+    from repro_torch.engine import (EngineConfig, FaultPlan,
+                                    clear_plan_cache, compile)
+    from repro_torch.engine.executor import pool_devices
+    from repro_torch.engine.partition import full_context_bytes
+    from repro_torch.kernels.triad_census import census_csr
+
+    clear_plan_cache()
+    base = compile(g, FUSED_OPS, EngineConfig(backend="tiles", device=dev))
+    check(np.array_equal(base.run_raw(g), raw_fused),
+          "partition: unpartitioned fused bins moved")
+    torch.cuda.reset_peak_memory_stats()
+    base.run_raw(g)
+    base_peak = torch.cuda.max_memory_allocated()
+    launches = {}
+    for name, kw in PARTITION_RUNS.items():
+        cfg = EngineConfig(backend="tiles", device=dev,
+                           partitions=PARTITIONS, **kw)
+        torch.cuda.synchronize()
+        census_csr.launches = 0
+        t0 = time.perf_counter()
+        plan = compile(g, FUSED_OPS, cfg)
+        if name in SHARED_SLOTS:
+            plan.executor.devices = pool_devices(plan.device,
+                                                 SHARED_SLOTS[name])
+        raw = plan.run_raw(g)
+        cold_s = time.perf_counter() - t0
+        check(plan.executor.n_devices == SHARED_SLOTS.get(name, 1),
+              f"partition {name}: {plan.executor.n_devices} pool slots")
+        check_partition_run(plan, raw, raw_fused, census_csr.launches,
+                            f"partition {name} cold")
+        base_s, warm_s = warm_times(torch, [lambda: base.run_raw(g),
+                                            lambda: plan.run_raw(g)], 3)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        syncs0 = plan.stats["host_syncs"]
+        census_csr.launches = 0
+        raw = plan.run_raw(g)
+        launches[name] = census_csr.launches
+        peak = torch.cuda.max_memory_allocated()
+        tasks = check_partition_run(plan, raw, raw_fused, launches[name],
+                                    f"partition {name}")
+        check(plan.stats["host_syncs"] == syncs0 + 1
+              and plan.stats["host_syncs"] == 5,
+              f"partition {name}: {plan.stats['host_syncs']} copies")
+        ps = plan.stats["partition"]
+        emit("partition", graph="slashdot", run=name, ops=list(FUSED_OPS),
+             partitions=PARTITIONS, mode=ps["mode"],
+             pool=plan.executor.n_devices, shard_tasks=tasks,
+             launches=launches[name], cold_s=cold_s, warm_s=warm_s,
+             unpartitioned_warm_s=base_s,
+             warm_over_unpartitioned=float(np.median(warm_s)
+                                           / np.median(base_s)),
+             shard_dispatch_s=dispatch_s(ps), max_memory_allocated=peak,
+             unpartitioned_max_memory_allocated=base_peak,
+             shard_dyads=ps["shard_dyads"], halo_sizes=ps["halo_sizes"],
+             h2d_puts=ps["h2d_puts"], d2d_puts=ps["d2d_puts"],
+             max_shard_bytes=ps["max_shard_bytes"],
+             full_context_bytes=full_context_bytes(plan, g),
+             max_stage_bytes=ps["max_stage_bytes"],
+             stream_bytes=ps["stream_bytes"], spill=ps["spill"],
+             shard_overlap=ps["shard_overlap"], faults=plan.stats["faults"],
+             host_syncs_per_run=1, bit_identical_to_unpartitioned=True)
+        if name == "pool":
+            kern = shard_kernel_check(torch, plan, g, rates, "slashdot_p8",
+                                      ends_only=False)
+            check(kern["chunks"] == tasks and kern["max_abs_err"] == 0,
+                  f"partition kernel check: {kern}")
+            emit("partition_kernel", graph="slashdot",
+                 partitions=PARTITIONS, **kern)
+        del plan
+
+    plan = compile(g, FUSED_OPS, EngineConfig(
+        backend="tiles", device=dev, partitions=PARTITIONS,
+        delta_threshold=1.0))
+    raw = plan.run_raw(g)
+    d = footprint_delta(g, 64, np.random.default_rng(16))
+    syncs0 = plan.stats["host_syncs"]
+    torch.cuda.synchronize()
+    census_csr.launches = 0
+    t0 = time.perf_counter()
+    res = plan.apply_delta(g, d, raw)
+    delta_s = time.perf_counter() - t0
+    launches["delta_k64"] = census_csr.launches
+    want = base.run_raw(res.graph)
+    shards = plan.stats["partition"]["delta_shards"]
+    check(res.mode == "delta" and np.array_equal(res.raw, want)
+          and plan.stats["host_syncs"] == syncs0 + 1
+          and launches["delta_k64"] > 0 and 1 <= shards <= PARTITIONS,
+          f"partition delta k=64: mode {res.mode}, {shards} shards, "
+          f"{launches['delta_k64']} launches, {plan.stats}")
+    emit("partition_delta", graph="slashdot", k=64, mode=res.mode,
+         affected_fraction=res.affected_fraction, delta_shards=shards,
+         launches=launches["delta_k64"], seconds=delta_s,
+         bit_identical_to_full=True)
+    del plan, res
+    faults_clean("partition")
+
+    plan = compile(g, FUSED_OPS, EngineConfig(
+        backend="tiles", device=dev, partitions=PARTITIONS,
+        fault_plan=FaultPlan(seed=16, chunk_failure_rate=0.2)))
+    census_csr.launches = 0
+    raw = plan.run_raw(g)
+    launches["faults"] = census_csr.launches
+    check_partition_run(plan, raw, raw_fused, launches["faults"],
+                        "partition faults")
+    fs = plan.stats["faults"]
+    check(fs["retries"] == fs["chunk_failures"] > 0
+          and plan.stats["host_syncs"] == 1 and not plan.degradation
+          and not any(fs[k] for k in ("device_losses", "quarantines",
+                                       "backend_fallbacks",
+                                       "schedule_fallbacks")),
+          f"partition faults: {fs}, {plan.degradation}")
+    emit("partition_faults", graph="slashdot", partitions=PARTITIONS,
+         launches=launches["faults"], faults=fs,
+         bit_identical_to_unpartitioned=True)
+    clear_plan_cache()
+    return launches
+
+
+def patents_phase(torch, dev, rates):
+    """Patents at its published size, built once with ``from_edges_mmap``:
+    unpartitioned on tiles, then P = 4 serial with spill and P = 4 pool,
+    bins bit-equal and held to the host's dyad census (``dyad_identity``),
+    one copy and one census_csr
+    launch per task a run; census_csr against its plain version on the
+    first and last chunk of each bucket of each shard.  Returns the
+    census_csr launches of one warm run of each."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core import generators
+    from repro_torch.core.graph import from_edges_mmap
+    from repro_torch.engine import EngineConfig, clear_plan_cache, compile
+    from repro_torch.engine.partition import full_context_bytes, plan_partition
+    from repro_torch.kernels.triad_census import census_csr
+
+    scratch = tempfile.mkdtemp(prefix="chip-smoke-patents-")
+    try:
+        t0 = time.perf_counter()
+        n, src, dst, directed = generators.paper_profile_arcs(
+            "patents", scale_down=1.0, seed=0)
+        g = from_edges_mmap(n, src, dst, directed=directed, dir=scratch)
+        del src, dst
+        emit("graph", name="patents", n=g.n, arcs=g.m, dyads=g.n_dyads,
+             max_deg=g.max_deg, mmap=True,
+             seconds=time.perf_counter() - t0)
+        clear_plan_cache()
+        torch.cuda.empty_cache()
+        runs = (("tiles", {}),
+                ("serial_spill", dict(partitions=PATENTS_PARTITIONS,
+                                      spill=True)),
+                ("pool", dict(partitions=PATENTS_PARTITIONS,
+                              partition_mode="pool")))
+        launches, want = {}, None
+        for name, kw in runs:
+            plan = compile(g, ("triad_census",),
+                           EngineConfig(backend="tiles", device=dev, **kw))
+            fields = {}
+            if plan.partitions > 1:
+                t0 = time.perf_counter()
+                plan_partition(plan, g)
+                fields["partition_host_s"] = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            census_csr.launches = 0
+            t0 = time.perf_counter()
+            raw_cold = plan.run_raw(g)
+            cold_s = time.perf_counter() - t0
+            check(census_csr.launches == plan.stats["chunks"] > 0,
+                  f"patents {name} cold: {census_csr.launches} launches, "
+                  f"{plan.stats}")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            chunks0 = plan.stats["chunks"]
+            census_csr.launches = 0
+            t0 = time.perf_counter()
+            raw = plan.run_raw(g)
+            warm_s = time.perf_counter() - t0
+            launches[name] = census_csr.launches
+            peak = torch.cuda.max_memory_allocated()
+            check(launches[name] == plan.stats["chunks"] - chunks0
+                  and plan.stats["host_syncs"] == 2
+                  and np.array_equal(raw, raw_cold),
+                  f"patents {name} warm: {launches[name]} launches, "
+                  f"{plan.stats}")
+            if want is None:
+                want = raw
+                result = plan.layout.finalize(raw, g)["triad_census"]
+                sums, dyads = dyad_identity(g, result.counts)
+                check(all(a == b for a, b in sums.values())
+                      and dyads == g.n_dyads
+                      and (result.counts >= 0).all(),
+                      f"patents census against its dyad census: {sums}, "
+                      f"{dyads} host dyads, {g.n_dyads} engine dyads")
+                fields["counts"] = result.counts.tolist()
+                fields["dyad_identity"] = {k: str(a)
+                                           for k, (a, _) in sums.items()}
+            else:
+                ps = plan.stats["partition"]
+                check_partition_run(plan, raw, want, launches[name],
+                                    f"patents {name}")
+                fields.update(
+                    mode=ps["mode"], shard_dispatch_s=dispatch_s(ps),
+                    shard_dyads=ps["shard_dyads"],
+                    halo_sizes=ps["halo_sizes"], h2d_puts=ps["h2d_puts"],
+                    d2d_puts=ps["d2d_puts"],
+                    max_shard_bytes=ps["max_shard_bytes"],
+                    full_context_bytes=full_context_bytes(plan, g),
+                    max_stage_bytes=ps["max_stage_bytes"],
+                    stream_bytes=ps["stream_bytes"], spill=ps["spill"],
+                    shard_overlap=ps["shard_overlap"],
+                    bit_identical_to_unpartitioned=True)
+            emit("patents", run=name, partitions=plan.partitions,
+                 cold_s=cold_s, warm_s=warm_s,
+                 warm_dyads_per_s=g.n_dyads / warm_s,
+                 launches=launches[name], host_syncs_per_run=1,
+                 max_memory_allocated=peak, faults=plan.stats["faults"],
+                 **fields)
+            if name == "pool":
+                kern = shard_kernel_check(torch, plan, g, rates, "patents_p4",
+                                          ends_only=True)
+                check(kern["chunks"] > 0 and kern["max_abs_err"] == 0,
+                      f"patents kernel check: {kern}")
+                emit("patents_kernel", partitions=PATENTS_PARTITIONS, **kern)
+            faults_clean(f"patents_{name}")
+            del plan
+            clear_plan_cache()
+            torch.cuda.empty_cache()
+        del g
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1857,8 +2247,13 @@ def run(dev) -> int:
                    reorder_launches=reorder_launches,
                    faults_launches=faults_phase(torch, dev, g, raw_warm))
     clear_plan_cache()
+
+    # 4i.-4j. graph partitions on Slashdot, then Patents at full size -------
+    csr_row.update(partition_launches=partition_phase(torch, dev, g, rates,
+                                                      raw_fused))
     del g
     torch.cuda.empty_cache()
+    csr_row.update(patents_launches=patents_phase(torch, dev, rates))
 
     # 5.-7. the flash kernel and the serving path -----------------------------
     flash = flash_kernel_phase(torch, dev)

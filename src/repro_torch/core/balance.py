@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from .census import canonical_dyads, make_member_fn
-from .graph import CSRGraph
+from .graph import CSRGraph, tensor_arrays
 
 __all__ = ["PACKING", "WEIGHTS", "ShardedTasks", "chunk_bounds_by_cost",
            "dyad_weights", "exact_s_sizes", "pack_tasks"]
@@ -112,7 +112,8 @@ def exact_s_sizes(g: CSRGraph, u: np.ndarray, v: np.ndarray,
     uu = np.concatenate([u, np.zeros(pad, np.int64)]).astype(np.int64)
     vv = np.concatenate([v, np.ones(pad, np.int64)]).astype(np.int64)
     dev = g.device
-    outs = [_s_batch(g.arrays, torch.from_numpy(uu[i: i + batch]).to(dev),
+    arrays = tensor_arrays(g.arrays, dev)
+    outs = [_s_batch(arrays, torch.from_numpy(uu[i: i + batch]).to(dev),
                      torch.from_numpy(vv[i: i + batch]).to(dev), K, member)
             for i in range(0, len(uu), batch)]
     return torch.cat(outs).cpu().numpy()[:d].astype(np.int64)

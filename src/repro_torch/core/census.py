@@ -32,10 +32,12 @@ from .triad_table import TRIAD_TABLE_64
 
 class CensusResult(NamedTuple):
     """A finished triad census: ``counts[i]`` is the number of triads of
-    type ``i + 1`` in MAN notation ("003" .. "300"), int64, including the
-    type-003 closed form.  ``total`` always equals C(n, 3)."""
+    type ``i + 1`` in MAN notation ("003" .. "300"), including the
+    type-003 closed form: int64, or exact Python ints (object dtype) once
+    C(n, 3) passes int64's range (n >= 3,810,780).  ``total`` always
+    equals C(n, 3)."""
 
-    counts: np.ndarray  # (16,) int64
+    counts: np.ndarray  # (16,) int64, or object past int64
 
     @property
     def total(self) -> int:

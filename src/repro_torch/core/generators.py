@@ -6,7 +6,8 @@ way, so the same seed gives the same arcs in both packages.
   * ``erdos_renyi``   — uniform random digraphs,
   * ``rmat``          — Kronecker/R-MAT power-law digraphs,
   * ``paper_profile`` — R-MAT instances whose (n, m) match the paper's
-                        Table 4.1 datasets, optionally scaled down.
+                        Table 4.1 datasets, optionally scaled down
+                        (``*_arcs``: the arc lists, for other constructors).
 """
 from __future__ import annotations
 
@@ -41,6 +42,15 @@ def rmat(scale: int, edge_factor: int = 16, a: float = 0.57, b: float = 0.19,
          c: float = 0.19, seed: int = 0, directed: bool = True, *,
          device=None) -> CSRGraph:
     """R-MAT power-law digraph with 2**scale vertices (Graph500 defaults)."""
+    n, src, dst = rmat_arcs(scale, edge_factor, a, b, c, seed)
+    return from_edges(n, src, dst, directed=directed, device=device)
+
+
+def rmat_arcs(scale: int, edge_factor: int = 16, a: float = 0.57,
+              b: float = 0.19, c: float = 0.19, seed: int = 0):
+    """The arc list :func:`rmat` builds its graph from: ``(n, src,
+    dst)``, before deduplication (for a graph built another way, such as
+    :func:`repro_torch.core.graph.from_edges_mmap`)."""
     n = 1 << scale
     m = n * edge_factor
     rng = np.random.default_rng(seed)
@@ -55,8 +65,7 @@ def rmat(scale: int, edge_factor: int = 16, a: float = 0.57, b: float = 0.19,
         dst |= in_b_or_d.astype(np.int64) << bit
     # permute vertex ids to break the Kronecker locality artifact
     perm = rng.permutation(n).astype(np.int64)
-    src, dst = perm[src], perm[dst]
-    return from_edges(n, src, dst, directed=directed, device=device)
+    return n, perm[src], perm[dst]
 
 
 def paper_profile(name: str, scale_down: float = 64.0, seed: int = 0, *,
@@ -66,10 +75,16 @@ def paper_profile(name: str, scale_down: float = 64.0, seed: int = 0, *,
     ``scale_down`` divides both n and m; ``scale_down=1`` is the
     published size.
     """
+    n, src, dst, directed = paper_profile_arcs(name, scale_down, seed)
+    return from_edges(n, src, dst, directed=directed, device=device)
+
+
+def paper_profile_arcs(name: str, scale_down: float = 64.0, seed: int = 0):
+    """The arc list of :func:`paper_profile`'s graph: ``(n, src, dst,
+    directed)``."""
     n, m, directed = PAPER_DATASETS[name]
     n_s = max(64, int(n / scale_down))
     m_s = max(128, int(m / scale_down))
     scale = max(6, int(np.ceil(np.log2(n_s))))
     ef = max(1, int(round(m_s / (1 << scale))))
-    return rmat(scale, edge_factor=ef, seed=seed, directed=directed,
-                device=device)
+    return (*rmat_arcs(scale, edge_factor=ef, seed=seed), directed)

@@ -14,6 +14,14 @@ never copies from the card.
 Device rule: every constructor takes ``device``; ``None`` means
 ``"cuda"``, and asking for CUDA on a machine without it raises instead of
 running on the CPU.
+
+Out of core: :func:`from_edges_mmap` builds a graph whose arrays are
+read-only ``np.memmap`` views of ``.npy`` files.  Such a graph holds no
+tensors — ``arrays`` and ``host`` are the same memmaps, and ``device`` is
+the CPU, where they live — so host code pages rows in on demand, and a
+plan on any device copies what it needs: the padded whole graph
+(:meth:`repro_torch.engine.Plan.padded_arrays`) or one shard's local CSR
+at a time (:mod:`repro_torch.engine.partition`).
 """
 from __future__ import annotations
 
@@ -68,7 +76,7 @@ class CSRGraph:
     m_nbr: int  # total undirected adjacency entries (2 * #undirected edges)
     max_deg: int  # max undirected open-neighbourhood size
     max_out_deg: int
-    arrays: GraphArrays  # torch tensors on ``device``
+    arrays: GraphArrays  # tensors on ``device`` (an mmap graph: memmaps)
     host: GraphArrays  # the same arrays as host numpy
 
     @property
@@ -78,8 +86,10 @@ class CSRGraph:
 
     @property
     def device(self) -> torch.device:
-        """The device the graph's tensors live on."""
-        return self.arrays.out_ptr.device
+        """The device the graph's tensors live on; the CPU for a graph
+        whose arrays are host memmaps (:func:`from_edges_mmap`)."""
+        a = self.arrays.out_ptr
+        return a.device if isinstance(a, torch.Tensor) else torch.device("cpu")
 
 
 def _build_csr(n: int, rows: np.ndarray, cols: np.ndarray):
@@ -169,6 +179,58 @@ def graph_from_reference_arrays(n: int, arrays, *, device=None) -> CSRGraph:
         device=device)
 
 
+def from_edges_mmap(n: int, src, dst, *, directed: bool = True,
+                    dir: "str | None" = None) -> CSRGraph:
+    """Build a :class:`CSRGraph` whose arrays are **memory-mapped** host
+    ``.npy`` files — the out-of-core constructor.
+
+    Canonicalization is :func:`from_edges`'s (the same helper, so both
+    give the same arrays for the same arcs); the five CSR arrays are then
+    written to ``dir`` (a fresh temporary directory when ``None``) and
+    reopened read-only with ``mmap_mode="r"``.  The graph holds no
+    tensors: ``arrays`` and ``host`` are those memmaps and ``device`` is
+    the CPU (see the module docstring).  The files are the caller's: they
+    stay in ``dir`` after the graph is dropped.
+    """
+    import os
+    import tempfile
+
+    host, m, m_nbr, max_deg, max_out_deg = _build_host_arrays(
+        n, src, dst, directed=directed)
+    d = dir if dir is not None else tempfile.mkdtemp(prefix="repro-graph-")
+    os.makedirs(d, exist_ok=True)
+
+    def spill(name: str, arr: np.ndarray) -> np.ndarray:
+        if arr.size == 0:  # np.memmap rejects zero-length buffers
+            return arr
+        path = os.path.join(d, f"{name}.npy")
+        mm = np.lib.format.open_memmap(path, mode="w+", dtype=arr.dtype,
+                                       shape=arr.shape)
+        mm[:] = arr
+        mm.flush()
+        del mm
+        return np.load(path, mmap_mode="r")
+
+    arrays = GraphArrays(*(spill(f, a) for f, a in
+                           zip(GraphArrays._fields[:5], host[:5])))
+    return CSRGraph(n=n, m=m, m_nbr=m_nbr, max_deg=max_deg,
+                    max_out_deg=max_out_deg, arrays=arrays, host=arrays)
+
+
+def tensor_arrays(arrays: GraphArrays, device) -> GraphArrays:
+    """Five CSR arrays as tensors on ``device``: tensors are moved (no copy
+    on their own device), host arrays — a shard's local CSR, an mmap
+    graph's memmaps — are read into memory once and copied there."""
+    def one(a):
+        if isinstance(a, torch.Tensor):
+            return a.to(device)
+        a = np.asarray(a, dtype=np.int32)
+        return torch.from_numpy(a if a.flags.writeable else a.copy()).to(
+            device)
+
+    return GraphArrays(*(one(a) for a in arrays[:5]))
+
+
 def arcs_host(g: CSRGraph) -> "tuple[np.ndarray, np.ndarray]":
     """The directed arc list ``(src, dst)`` as host int64 arrays — the
     exact inverse of :func:`from_edges` for deduplicated strict digraphs."""
@@ -176,6 +238,29 @@ def arcs_host(g: CSRGraph) -> "tuple[np.ndarray, np.ndarray]":
     dst = g.host.out_idx[: g.m].astype(np.int64)
     src = np.repeat(np.arange(g.n, dtype=np.int64), np.diff(out_ptr))
     return src, dst
+
+
+def arcs_host_iter(g: CSRGraph, *, cuts=None, block: int = 1 << 16):
+    """Stream the directed arc list one contiguous vertex range at a time:
+    yields an int64 ``(src, dst)`` pair per range, reading only that
+    range's rows (O(range) host memory on an mmap graph, where
+    :func:`arcs_host` reads the whole list).  Ranges come from ``cuts``
+    (e.g. :func:`repro_torch.core.partition.partition_cuts`, to walk the
+    engine's shards) or ``block``-sized strides.  The concatenation of
+    every yield is :func:`arcs_host`."""
+    ptr = np.asarray(g.host.out_ptr)[: g.n + 1].astype(np.int64)
+    idx = g.host.out_idx
+    bounds = (np.asarray(cuts, dtype=np.int64) if cuts is not None
+              else np.arange(0, g.n + block, block,
+                             dtype=np.int64).clip(max=g.n))
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        lo, hi = int(lo), int(hi)
+        if hi <= lo:
+            continue
+        dst = np.asarray(idx[ptr[lo]:ptr[hi]], dtype=np.int64)
+        src = np.repeat(np.arange(lo, hi, dtype=np.int64),
+                        np.diff(ptr[lo:hi + 1]))
+        yield src, dst
 
 
 def dense_adjacency(g: CSRGraph) -> np.ndarray:

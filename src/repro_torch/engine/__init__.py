@@ -33,6 +33,18 @@ over the executor's device pool (``n_executor_devices``; CPU slots on
 and locality relabeling (``reorder="degree"|"bfs"|"rcm"``) with results
 bit-identical to ``"none"``.
 
+Partitioned graphs and out-of-core runs (:mod:`repro_torch.core.
+partition`, :mod:`repro_torch.engine.partition`):
+``EngineConfig(partitions=P)`` splits the CSR into P contiguous
+vertex-range shards balanced by owned canonical dyads, each a local CSR
+with a halo of the remote rows its dyads read, and runs every shard pass
+through the plan's own chunk unit (on tiles, the CUDA census kernel),
+all shards resident at once (``partition_mode="pool"``) or one at a time
+(``"serial"``); bins equal the unpartitioned ones, one copy per run.
+``spill=True`` stages shard dyad lists through memory-mapped files, and
+:func:`repro_torch.core.graph.from_edges_mmap` keeps the graph itself in
+memory-mapped files.
+
 Plans run on ``EngineConfig.device`` (``None`` = ``"cuda"``; raises
 without CUDA, never falls back to the CPU).  ``CensusConfig`` /
 ``compile_census`` / :class:`CensusPlan` are the census-era names of the

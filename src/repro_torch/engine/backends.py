@@ -18,7 +18,11 @@ under the dynamic one.
 
 A *pass* adds one graph's bins into an accumulator row: the full passes
 (:func:`search_pass`, :func:`tiles_pass`) walk every dyad, the subset
-passes (:func:`subset_search`, :func:`subset_tiles`) a given dyad list.
+pass (:func:`subset_pass`, either backend) a given dyad list.  The
+subset pass takes an ``arrays=`` override, the hook of the partitioned
+engine (:mod:`repro_torch.engine.partition`): a shard pass is a subset
+pass over the shard's dyads and its local CSR, whose once contributions
+are the caller's to fold (they are whole-graph functions).
 """
 from __future__ import annotations
 
@@ -93,8 +97,9 @@ def _fold_once(plan, acc: torch.Tensor, arrays: GraphArrays, n: int) -> None:
 
 
 def _upload_dyads(plan, u: np.ndarray, v: np.ndarray):
-    """A host dyad list on the plan's device, as int32."""
-    return tuple(torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32))
+    """A host dyad list on the plan's device, as int32 (a read-only list,
+    such as a spilled shard's memmap, is copied first)."""
+    return tuple(torch.from_numpy(np.require(x, np.int32, ("C", "W")))
                  .to(plan.device) for x in (u, v))
 
 
@@ -128,12 +133,12 @@ def _search_tasks(plan, g: CSRGraph, u: np.ndarray, v: np.ndarray,
             for t in _span_tasks(plan, g, len(u), chunk, (u, v))]
 
 
-def _run_search(plan, g: CSRGraph, arrays, du, dv, tasks, acc) -> None:
+def _run_full(plan, g: CSRGraph, arrays, du, dv, tasks, acc) -> None:
+    """Fold ``g``'s once contributions, then run ``tasks`` over the dyad
+    stream ``(du, dv)``, into ``acc``."""
     _fold_once(plan, acc, arrays, g.n)
-    plan.executor.run(
-        tasks, place=_placer(arrays, du, dv),
-        step=lambda ctx, t: plan._fn(ctx[0], g.n, ctx[1], ctx[2], t),
-        init=acc)
+    plan.executor.run(tasks, place=_placer(arrays, du, dv),
+                      step=make_step(plan, g.n), init=acc)
 
 
 def search_pass(plan, g: CSRGraph, acc: torch.Tensor) -> None:
@@ -143,21 +148,7 @@ def search_pass(plan, g: CSRGraph, acc: torch.Tensor) -> None:
                                     out_size=plan.dyad_pad)
     tasks = _memo_tasks(plan, g, ("search", plan.chunk), lambda: _search_tasks(
         plan, g, *canonical_dyads(g), plan.chunk))
-    _run_search(plan, g, arrays, du, dv, tasks, acc)
-
-
-def subset_search(plan, g: CSRGraph, u: np.ndarray, v: np.ndarray,
-                  acc: torch.Tensor) -> None:
-    """Add the search-backend bins of ``g``'s dyads ``(u, v)`` (and ``g``'s
-    once contributions) into ``acc``; each task's candidate count is
-    summed on the host from the list."""
-    arrays = plan.padded_arrays(g)
-    if not len(u):
-        _fold_once(plan, acc, arrays, g.n)
-        return
-    du, dv = _upload_dyads(plan, u, v)
-    _run_search(plan, g, arrays, du, dv,
-                _search_tasks(plan, g, u, v, plan.chunk), acc)
+    _run_full(plan, g, arrays, du, dv, tasks, acc)
 
 
 # ----------------------------------------------------------------------------
@@ -321,56 +312,72 @@ def tiles_stream(plan, g: CSRGraph) -> TilesStream:
     return TilesStream(arrays, su, sv, tasks, chunk, block)
 
 
-def _dispatch_tiles(plan, g: CSRGraph, st: TilesStream,
-                    acc: torch.Tensor) -> None:
-    _fold_once(plan, acc, st.arrays, g.n)
-    plan.executor.run(
-        st.tasks, place=_placer(st.arrays, st.su, st.sv),
-        step=lambda ctx, t: plan._fn(ctx[0], g.n, ctx[1], ctx[2], t,
-                                     chunk=st.chunk, block=st.block),
-        init=acc)
-
-
 def tiles_pass(plan, g: CSRGraph, acc: torch.Tensor) -> None:
     """Add ``g``'s full tiles-backend bins into ``acc`` (graph has dyads)."""
-    _dispatch_tiles(plan, g, tiles_stream(plan, g), acc)
+    st = tiles_stream(plan, g)
+    _run_full(plan, g, st.arrays, st.su, st.sv, st.tasks, acc)
 
 
-def subset_tiles(plan, g: CSRGraph, u: np.ndarray, v: np.ndarray,
-                 acc: torch.Tensor) -> None:
-    """Add the tiles-backend bins of ``g``'s dyads ``(u, v)`` (and ``g``'s
-    once contributions) into ``acc``.  For the census the dyads are
-    sorted on the host by (bucket, need), as the full pass sorts on the
-    device, so every task's ``K`` is its bucket's width; the sorted list
-    is uploaded once."""
-    block, chunk, ks = tiles_geometry(plan)
-    census = CENSUS in plan.layout.slices
-    arrays = plan.padded_arrays(g, with_flags=census)
-    if not len(u):
+def needs_flags(plan) -> bool:
+    """Whether the plan's passes read the arc flags and range counts: the
+    census on tiles."""
+    return plan.backend == "tiles" and CENSUS in plan.layout.slices
+
+
+def subset_schedule(plan, g: CSRGraph, u: np.ndarray, v: np.ndarray):
+    """The host half of a subset pass over ``g``'s dyads ``(u, v)``:
+    ``(u, v, tasks)`` with the dyads in dispatch order.  Tiles with the
+    census sorts them by (bucket, need) from ``g``'s degrees (global
+    degrees: a shard keeps its dyads' rows in full) and keys each task
+    with its bucket's width; search keys each span with its candidate
+    count."""
+    if plan.backend == "search":
+        return u, v, _search_tasks(plan, g, u, v, plan.chunk)
+    _, chunk, ks = tiles_geometry(plan)
+    if CENSUS not in plan.layout.slices:
+        return u, v, [t._replace(key=ks[-1])
+                      for t in _span_tasks(plan, g, len(u), chunk, (u, v))]
+    need, b = dyad_buckets(g, u, v, ks)
+    order = np.lexsort((need, b))
+    return u[order], v[order], _bucket_tasks(
+        ks, np.bincount(b, minlength=len(ks))[: len(ks)], chunk,
+        need[order] if plan.config.schedule == "dynamic" else None)
+
+
+def make_step(plan, n: int):
+    """The executor's ``step(ctx, task)`` of the plan's backend over a
+    ``(arrays, su, sv)`` context of a graph of ``n`` vertices."""
+    if plan.backend == "search":
+        return lambda ctx, t: plan._fn(ctx[0], n, ctx[1], ctx[2], t)
+    block, chunk, _ = tiles_geometry(plan)
+    return lambda ctx, t: plan._fn(ctx[0], n, ctx[1], ctx[2], t,
+                                   chunk=chunk, block=block)
+
+
+def subset_pass(plan, g: CSRGraph, u: np.ndarray, v: np.ndarray,
+                acc: torch.Tensor, *, arrays=None) -> None:
+    """Add the bins of ``g``'s dyads ``(u, v)`` (and ``g``'s once
+    contributions, unless ``arrays`` overrides the padded graph arrays)
+    into ``acc``, in :func:`subset_schedule`'s order: on tiles with the
+    census sorted on the host by (bucket, need), as the full pass sorts
+    on the device, so every task's ``K`` is its bucket's width; the
+    sorted list is uploaded once."""
+    if arrays is None:
+        arrays = plan.padded_arrays(g, with_flags=needs_flags(plan))
         _fold_once(plan, acc, arrays, g.n)
+    if not len(u):
         return
-    if census:
-        need, b = dyad_buckets(g, u, v, ks)
-        order = np.lexsort((need, b))
-        u, v = u[order], v[order]
-        tasks = _bucket_tasks(
-            ks, np.bincount(b, minlength=len(ks))[: len(ks)], chunk,
-            need[order] if plan.config.schedule == "dynamic" else None)
-    else:
-        tasks = [t._replace(key=ks[-1])
-                 for t in _span_tasks(plan, g, len(u), chunk, (u, v))]
-    su, sv = _upload_dyads(plan, u, v)
-    _dispatch_tiles(plan, g, TilesStream(arrays, su, sv, tasks, chunk, block),
-                    acc)
+    u, v, tasks = subset_schedule(plan, g, u, v)
+    plan.executor.run(tasks, place=_placer(arrays, *_upload_dyads(plan, u, v)),
+                      step=make_step(plan, g.n), init=acc)
 
 
 # ----------------------------------------------------------------------------
 # drivers: one run, a batch, a delta correction — one counted copy each
 # ----------------------------------------------------------------------------
 
-#: backend name -> full pass, and -> subset pass.
+#: backend name -> full pass
 PASSES = {"tiles": tiles_pass, "search": search_pass}
-SUBSET_PASSES = {"tiles": subset_tiles, "search": subset_search}
 
 
 def _zeros(plan, *shape) -> torch.Tensor:
@@ -402,11 +409,15 @@ def run_batch(plan, graphs) -> np.ndarray:
 def run_subsets(plan, g_old: CSRGraph, old, g_new: CSRGraph,
                 new) -> np.ndarray:
     """Exact ``raw(g_new) - raw(g_old)`` over the dyad lists ``old`` of
-    ``g_old`` and ``new`` of ``g_new``: two subset passes, their
-    difference taken on the device in int64 (it may be negative), one
-    copy."""
+    ``g_old`` and ``new`` of ``g_new``: two subset passes (partitioned
+    ones on a partitioned plan), their difference taken on the device in
+    int64 (it may be negative), one copy."""
+    if plan.partitions > 1:
+        from .partition import subset_partitioned as subset
+    else:
+        subset = subset_pass
     acc = _zeros(plan, 2)
     for row, g, (u, v) in ((acc[0], g_old, old), (acc[1], g_new, new)):
         if g.n_dyads:
-            SUBSET_PASSES[plan.backend](plan, g, u, v, row)
+            subset(plan, g, u, v, row)
     return _acc_fetch(plan, acc[1] - acc[0])

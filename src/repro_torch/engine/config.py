@@ -1,7 +1,8 @@
 """Engine configuration: the knobs of the port's census engine.
 
-Counterpart of :mod:`repro.engine.config` for the port's slices so far
-(partitions come with the next one).  One frozen, hashable dataclass,
+Counterpart of :mod:`repro.engine.config` (the ``"mesh"`` partition mode
+comes with the distributed backend, which the port does not have yet).
+One frozen, hashable dataclass,
 :class:`EngineConfig`; it is part of the plan-cache key.
 :data:`CensusConfig` is the same class under its census-era name.
 """
@@ -19,6 +20,7 @@ from .faults import FaultPlan
 BACKENDS = ("tiles", "search", "auto")
 SCHEDULES = ("static", "dynamic")
 REORDERS = ("none", "degree", "bfs", "rcm")
+PARTITION_MODES = ("serial", "pool")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,6 +109,34 @@ class EngineConfig:
             injected into this plan (``None`` = the
             ``REPRO_TORCH_FAULT_PLAN`` environment plan, if any; an inert
             ``FaultPlan()`` opts out).
+        partitions: number of contiguous vertex-range graph shards
+            (``None``/``1`` = the unpartitioned CSR).  With ``partitions >
+            1`` the CSR is split into ranges balanced by owned canonical
+            dyads, each run as a shard pass over a local CSR (its rows and
+            a halo of the remote rows its dyads read), every shard pass
+            through the plan's own chunk unit — on tiles the CUDA census
+            kernel — with bins equal to the unpartitioned ones and one
+            device→host copy per run (see
+            :mod:`repro_torch.engine.partition`).  Every op must keep the
+            ``delta_local`` contract.
+        spill: out-of-core staging of partitioned runs: ``None``/``False``
+            keeps each shard's dyad list in host memory, ``True`` stages
+            it through memory-mapped files in a fresh temporary
+            directory, a string names the directory to make it in; the
+            files are removed after the run.  With an mmap graph
+            (:func:`repro_torch.core.graph.from_edges_mmap`) the host
+            holds one shard's staging at a time
+            (``stats["partition"]["max_stage_bytes"]`` against
+            ``stream_bytes``).
+        partition_mode: shard residency for ``partitions > 1`` (``None``
+            resolves it; rejected without partitions).  ``"pool"`` (the
+            default) stages every shard once onto its home pool slot and
+            keeps it resident for the run, halo rows copied from their
+            owner shard's resident arrays on the device, and drives all
+            shards' tasks through the executor pool at once; ``"serial"``
+            (the default under ``spill``) holds one shard on the plan's
+            device at a time — the out-of-core mode.  ``"mesh"`` belongs
+            to the distributed backend, not ported yet.
     """
 
     backend: str = "auto"
@@ -126,6 +156,9 @@ class EngineConfig:
     schedule_fallback: bool = True
     reorder: str = "none"
     fault_plan: Optional[FaultPlan] = None
+    partitions: Optional[int] = None
+    spill: "Optional[bool | str]" = None
+    partition_mode: Optional[str] = None
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
@@ -191,6 +224,41 @@ class EngineConfig:
             raise ValueError(
                 f"fault_plan must be a FaultPlan or None, got "
                 f"{type(self.fault_plan).__name__}")
+        if self.partitions is not None and (
+                not isinstance(self.partitions, int)
+                or isinstance(self.partitions, bool)
+                or self.partitions < 1):
+            raise ValueError(
+                f"partitions must be an int >= 1 or None (got "
+                f"{self.partitions!r}); it is the number of contiguous "
+                "vertex-range graph shards — None/1 is the unpartitioned "
+                "single-device CSR")
+        if self.spill is not None and not isinstance(self.spill, (bool, str)):
+            raise ValueError(
+                f"spill must be None, a bool, or a scratch-directory path "
+                f"(got {type(self.spill).__name__}); True stages shard "
+                "dyad lists through memory-mapped temp files, a string "
+                "names the scratch directory")
+        if self.partition_mode is not None:
+            if self.partition_mode == "mesh":
+                raise ValueError(
+                    "partition_mode='mesh' runs shard waves on the "
+                    "distributed backend's device mesh, which the port "
+                    "does not have yet: it comes with the torch.distributed "
+                    "backend — use partition_mode='pool' or 'serial'")
+            if self.partition_mode not in PARTITION_MODES:
+                raise ValueError(
+                    f"partition_mode must be one of {PARTITION_MODES} or "
+                    f"None, got {self.partition_mode!r}; 'pool' makes every "
+                    "shard resident on its executor-pool slot at once "
+                    "(halo rows copied on the device), 'serial' runs one "
+                    "shard context at a time on the plan's device (the "
+                    "out-of-core mode)")
+            if self.partitions is None or self.partitions == 1:
+                raise ValueError(
+                    f"partition_mode={self.partition_mode!r} requires "
+                    "partitions > 1 — an unpartitioned run has no shards "
+                    "to place; set partitions or drop partition_mode")
 
     def resolve_backend(self) -> str:
         """Pin ``"auto"`` to a concrete backend: the tiles path."""
@@ -212,6 +280,27 @@ class EngineConfig:
                  is not None else count)
             return max(1, min(n, count))
         return self.n_executor_devices or 1
+
+    def resolve_partitions(self) -> int:
+        """Graph shard count; ``None`` means unpartitioned (1)."""
+        return 1 if self.partitions is None else int(self.partitions)
+
+    def resolve_spill(self) -> "Optional[bool | str]":
+        """Spill policy with the inert ``False`` normalized to ``None``, so
+        off by default and off by request share one plan."""
+        return None if self.spill is False else self.spill
+
+    def resolve_partition_mode(self) -> Optional[str]:
+        """Shard residency: ``None`` unpartitioned, the explicit mode when
+        set, ``"serial"`` under ``spill`` (out-of-core staging promises
+        ONE resident shard), else ``"pool"``.  ``compile()`` normalizes
+        the config through this, so ``None`` and the mode it resolves to
+        share one plan-cache entry."""
+        if self.resolve_partitions() == 1:
+            return None
+        if self.partition_mode is not None:
+            return self.partition_mode
+        return "serial" if self.resolve_spill() else "pool"
 
     def resolve_chunk(self) -> int:
         """Streaming chunk size, rounded up to a whole number of batches."""

@@ -21,7 +21,11 @@ the ``EngineConfig.delta_threshold`` cost model and returns a
 :class:`DeltaResult`.  Deltas stay in original vertex ids under
 ``config.reorder``: :func:`run_delta` relabels the delta into the plan's
 execution ids, runs both subset passes there and maps the correction
-back (``OpLayout.unpermute`` is linear).  A ``FaultPlan`` with
+back (``OpLayout.unpermute`` is linear).  On a partitioned plan each
+subset pass is :func:`repro_torch.engine.partition.subset_partitioned`:
+only the shards owning affected dyads run (``stats["partition"]
+["delta_shards"]``), still into one accumulator and one copy.  A
+``FaultPlan`` with
 ``mutate_failure_calls`` makes chosen applications raise mid-mutate.
 """
 from __future__ import annotations

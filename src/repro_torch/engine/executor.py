@@ -1,8 +1,7 @@
 """Chunk dispatch over a device pool: the static and dynamic schedules,
 bounded retry, quarantine and the dynamic→static rung.
 
-Counterpart of :mod:`repro.engine.executor` (``run_pinned`` and
-``run_sharded`` come with partitions).  The paper credits its multicore
+Counterpart of :mod:`repro.engine.executor`.  The paper credits its multicore
 speedups to OpenMP dynamic scheduling of degree-skewed dyad work; an
 :class:`Executor` is that policy over torch devices:
 
@@ -26,6 +25,15 @@ pool merges them into ``init`` on the primary device after every worker
 joined (exact integer addition, for any task assignment).
 :func:`_acc_fetch` is the run's one device→host copy, counted in
 ``stats["host_syncs"]``.
+
+The partitioned engine (:mod:`repro_torch.engine.partition`) drives two
+more entry points with contexts it stages itself: :meth:`Executor.
+run_pinned` (one shard's tasks in order on the primary slot, the
+``"serial"`` mode) and :meth:`Executor.run_sharded` (every shard's tasks
+over the pool at once, each shard homed on one slot, the ``"pool"``
+mode).  There one int64 accumulator per slot replaces the JAX package's
+per-(device, shard) hi/lo lanes: integer addition is exact, so the merged
+bins are the same for any homing or re-homing.
 
 Backpressure (:func:`_throttle`): after each chunk a worker records a CUDA
 event and, once more than ``pipeline_depth`` chunks are in flight on its
@@ -52,6 +60,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import threading
+import time
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -160,6 +169,25 @@ def _on(device: torch.device):
     """Make ``device`` current for the torch ops of a worker."""
     return (torch.cuda.device(device) if device.type == "cuda"
             else contextlib.nullcontext())
+
+
+def _sync(device: torch.device) -> None:
+    """Wait for the work queued on ``device`` (nothing to wait for on the
+    CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two pool slots are one device (``cuda`` and ``cuda:0`` are
+    the same card when 0 is current)."""
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    cur = torch.cuda.current_device
+    return ((a.index if a.index is not None else cur())
+            == (b.index if b.index is not None else cur()))
 
 
 def pool_devices(primary: torch.device, n: int) -> "list[torch.device]":
@@ -305,10 +333,16 @@ class Executor:
             self._suppress_device_loss = False
 
     def _run_inorder(self, tasks, place, step, acc) -> None:
+        with _on(self.devices[0]):
+            ctx = place(self.devices[0])
+        self._run_pinned_once(tasks, ctx, step, acc)
+
+    # -- pinned: in-order dispatch of a context staged by the caller --------
+
+    def _run_pinned_once(self, tasks, ctx, step, acc) -> None:
         dev = self.devices[0]
         window: collections.deque = collections.deque()
         with _on(dev):
-            ctx = place(dev)
             for ordinal, t in enumerate(tasks):
                 acc.add_(self._attempt(ctx, t, step, 0, ordinal))
                 # chunk and occupancy counters move together, so
@@ -316,6 +350,257 @@ class Executor:
                 self.stats["chunks"] += 1
                 self._bump(0, 1)
                 _throttle(window, dev, self.depth)
+
+    def run_pinned(self, tasks, *, ctx, step, init: torch.Tensor,
+                   rebuild=None) -> torch.Tensor:
+        """Run ``tasks`` in order on the primary slot over ``ctx``, a
+        context the caller staged there once (the ``"serial"`` partition
+        mode: one shard resident at a time), adding into ``init``; returns
+        ``init``.  Bounded retry per chunk as on the static path.  A lost
+        primary device under ``schedule_fallback`` re-runs the tasks with
+        device-loss injection suppressed (a fresh device), over
+        ``rebuild()`` when given, from ``init`` untouched: the first try
+        folded into a scratch accumulator."""
+        tasks = list(tasks)
+        if not (self.schedule_fallback and self.faults is not None
+                and self.faults.device_loss):
+            self._run_pinned_once(tasks, ctx, step, init)
+            return init
+        work = torch.zeros_like(init)
+        try:
+            self._run_pinned_once(tasks, ctx, step, work)
+        except ChunkRetryError as e:
+            if not isinstance(e.__cause__, DeviceLostError):
+                raise
+            self._note("schedule_fallback", "pinned-rerun",
+                       schedule_fallbacks=1)
+            self._suppress_device_loss = True
+            try:
+                self._run_pinned_once(
+                    tasks, ctx if rebuild is None else rebuild(), step, init)
+            finally:
+                self._suppress_device_loss = False
+            return init
+        return init.add_(work)
+
+    # -- sharded: every shard's tasks over the pool at once -------------------
+
+    def run_sharded(self, shard_tasks, *, place, step, init: torch.Tensor,
+                    pstats: dict) -> torch.Tensor:
+        """Concurrent shard residency (the ``"pool"`` partition mode):
+        drive EVERY shard's tasks through the pool at once, adding into
+        ``init``; returns ``init``.
+
+        ``shard_tasks`` is ``[(shard_id, [ChunkTask, ...]), ...]``; shard
+        ``k`` is homed on slot ``k % width`` and ``place(shard_id,
+        device)`` gives its context there (the caller stages each shard
+        once and hands back the resident context).  Each slot's worker
+        runs its shards' tasks interleaved, folding into its own
+        accumulator; the accumulators merge into ``init`` after join.
+        Faults as on the workqueue: a failed chunk retries on its home
+        slot; a lost or quarantined slot **re-homes its shards onto
+        survivors** (their queued tasks move and the new home places the
+        context on first touch; ``pstats["rehomes"]`` counts the moves);
+        an exhausted pool under ``schedule_fallback`` re-runs every shard
+        in order on the primary slot into the untouched ``init``.  Per-
+        shard wall-clock intervals land in ``pstats["shard_times"]``."""
+        shard_tasks = [(s, list(ts)) for s, ts in shard_tasks]
+        try:
+            self._run_sharded_queue(shard_tasks, place, step, init, pstats)
+        except PoolExhaustedError:
+            if not self.schedule_fallback:
+                raise
+            self._note("schedule_fallback", "dynamic->static",
+                       schedule_fallbacks=1)
+            self._suppress_device_loss = True
+            try:
+                for s, ts in shard_tasks:
+                    self._run_pinned_once(ts, place(s, self.devices[0]),
+                                          step, init)
+            finally:
+                self._suppress_device_loss = False
+        return init
+
+    def _run_sharded_queue(self, shard_tasks, place, step, init,
+                           pstats) -> None:
+        t_base = time.perf_counter()
+        times = pstats.setdefault("shard_times", {})
+        if len(self.devices) == 1:
+            # one slot: the shards in order on it, one placement each
+            for s, ts in shard_tasks:
+                ctx = place(s, self.devices[0])
+                start = time.perf_counter() - t_base
+                self.run_pinned(ts, ctx=ctx, step=step, init=init,
+                                rebuild=lambda s=s: place(s, self.devices[0]))
+                times[s] = dict(start=start, end=time.perf_counter() - t_base,
+                                tasks=len(ts), device=0)
+            return
+        n = len(self.devices)
+        home: dict = {}
+        queues = [collections.deque() for _ in range(n)]
+        by_slot: list = [[] for _ in range(n)]
+        for k, (s, ts) in enumerate(shard_tasks):
+            home[s] = k % n
+            by_slot[k % n].append((s, ts))
+        for i, lst in enumerate(by_slot):
+            # a slot's shards advance together, task by task
+            longest = max((len(ts) for _, ts in lst), default=0)
+            for j in range(longest):
+                queues[i].extend((s, ts[j], 1) for s, ts in lst
+                                 if j < len(ts))
+        cond = threading.Condition()
+        ctxs: dict = {}  # shard -> (slot, context on that slot)
+        accs: list = [None] * n
+        counts = [0] * n
+        fatal: list = []
+        alive = set(range(n))
+        failures = [0] * n
+        seen: list = []
+        tried: dict = {}
+        first: dict = {}
+        last: dict = {}
+        # tasks not folded yet: a worker with an empty queue waits while
+        # any remain, since a re-home may hand it work
+        pending = [sum(len(ts) for _, ts in shard_tasks)]
+
+        def rehome(i: int) -> None:  # callers hold cond
+            moved, queues[i] = queues[i], collections.deque()
+            if not alive:
+                if moved and not fatal:
+                    fatal.append(PoolExhaustedError(
+                        f"all {n} pool devices lost or quarantined with "
+                        f"{len(moved)} task(s) remaining", attempts=seen))
+                cond.notify_all()
+                return
+            survivors = sorted(alive)
+            assigned: dict = {}
+            for s, t, a in moved:
+                j = assigned.get(s)
+                if j is None:
+                    j = survivors[len(assigned) % len(survivors)]
+                    assigned[s] = home[s] = j
+                    pstats["rehomes"] = pstats.get("rehomes", 0) + 1
+                    self._note("shard_rehome", s, i, j)
+                queues[j].append((s, t, a))
+            cond.notify_all()
+
+        def quarantine(i: int, reason: str) -> None:  # callers hold cond
+            alive.discard(i)
+            self._note("quarantine", i, reason, quarantines=1)
+            rehome(i)
+
+        def on_failure(i, s, t, attempt, e) -> None:  # callers hold cond
+            if not _retryable(e):
+                fatal.append(e)
+                cond.notify_all()
+                return
+            seen.append(e)
+            tried.setdefault((s, t), []).append(e)
+            if isinstance(e, DeviceLostError):
+                queues[i].appendleft((s, t, attempt))  # the chunk is fine
+                quarantine(i, "device_loss")
+                return
+            failures[i] += 1
+            if attempt >= self.max_attempts:
+                err = ChunkRetryError(
+                    f"chunk [{t.start}, {t.end}) of shard {s} failed after "
+                    f"{attempt} attempt(s)", attempts=tried[(s, t)])
+                err.__cause__ = e
+                fatal.append(err)
+                cond.notify_all()
+                return
+            self._note("retry", t.start, attempt, retries=1)
+            queues[i].append((s, t, attempt + 1))
+            if failures[i] >= self.QUARANTINE_AFTER and len(alive) > 1:
+                quarantine(i, "repeated_failures")
+            cond.notify_all()
+
+        def worker(i: int, dev: torch.device) -> None:
+            mine: set = set()
+            try:
+                with _on(dev):
+                    accs[i] = acc = torch.zeros_like(init, device=dev)
+                    window: collections.deque = collections.deque()
+                    ordinal = 0
+                    while True:
+                        with cond:
+                            while (not fatal and i in alive and not queues[i]
+                                   and pending[0] > 0):
+                                cond.wait(0.05)
+                            if fatal or i not in alive or not queues[i]:
+                                break
+                            s, t, attempt = queues[i].popleft()
+                            hit = ctxs.get(s)
+                            first.setdefault(s, time.perf_counter() - t_base)
+                        if hit is not None and hit[0] == i:
+                            ctx = hit[1]
+                        else:
+                            try:
+                                ctx = place(s, dev)
+                            except Exception as e:  # noqa: BLE001 — a
+                                # slot that cannot hold the shard is out
+                                with cond:
+                                    seen.append(e)
+                                    queues[i].appendleft((s, t, attempt))
+                                    quarantine(i, "placement_failure")
+                                break
+                            with cond:
+                                ctxs[s] = (i, ctx)
+                        try:
+                            part = self._dispatch(ctx, t, step, i, ordinal,
+                                                  attempt)
+                        except Exception as e:  # noqa: BLE001
+                            ordinal += 1
+                            with cond:
+                                on_failure(i, s, t, attempt, e)
+                            continue
+                        ordinal += 1
+                        acc.add_(part)
+                        mine.add(s)
+                        counts[i] += 1
+                        with cond:
+                            pending[0] -= 1
+                            if pending[0] <= 0:
+                                cond.notify_all()
+                        _throttle(window, dev, self.depth)
+            except BaseException as e:  # noqa: BLE001 — see _run_workqueue
+                with cond:
+                    fatal.append(e)
+                    cond.notify_all()
+            finally:
+                # the end times record finished device work, not dispatch
+                try:
+                    _sync(dev)
+                except Exception:  # noqa: BLE001 — timing only
+                    pass
+                with cond:
+                    for s in mine:
+                        last[s] = max(last.get(s, 0.0),
+                                      time.perf_counter() - t_base)
+
+        threads = [threading.Thread(target=worker, args=(i, d), daemon=True)
+                   for i, d in enumerate(self.devices)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        if fatal:
+            dead = [e for e in fatal if isinstance(e, PoolExhaustedError)]
+            if dead:
+                raise dead[0]
+            _raise_worker_errors(fatal)
+        self.stats["chunks"] += sum(len(ts) for _, ts in shard_tasks)
+        for i, c in enumerate(counts):
+            if c:
+                self._bump(i, c)
+        for s, ts in shard_tasks:
+            if s in first:
+                times[s] = dict(start=first[s],
+                                end=max(last.get(s, first[s]), first[s]),
+                                tasks=len(ts), device=home[s])
+        for acc in accs:
+            if acc is not None:
+                init.add_(acc.to(init.device))
 
     def _run_workqueue(self, tasks, place, step, init) -> None:
         # queue entries are (task, attempt): a failed task re-queues with

@@ -178,7 +178,11 @@ class TriadCensusOp(GraphOp):
 
     def finalize(self, raw: np.ndarray, g: CSRGraph) -> CensusResult:
         counts = raw.astype(np.int64).copy()
-        counts[0] = _c3(g.n) - int(counts.sum())
+        c3 = _c3(g.n)
+        if c3 > np.iinfo(np.int64).max:
+            # from n = 3,810,780 on, bin 003 passes int64: Python ints
+            counts = counts.astype(object)
+        counts[0] = c3 - int(counts.sum())
         return CensusResult(counts=counts)
 
     def reference(self, g: CSRGraph) -> CensusResult:

@@ -1,11 +1,11 @@
 """Compiled census plans and the plan cache.
 
-Counterpart of :mod:`repro.engine.plan` (partitions come with the next
-slice).  ``compile(graph_meta, ops, config) -> Plan``: a :class:`Plan`
-owns what runs reuse — the padded-shape buckets, the chunk geometry, the
-fused chunk unit of its backend, its :class:`~repro_torch.engine.
-executor.Executor` (schedule and device pool), and bounded per-graph
-memos of host-derived chunk schedules and of locality permutations — and
+Counterpart of :mod:`repro.engine.plan`.  ``compile(graph_meta, ops,
+config) -> Plan``: a :class:`Plan` owns what runs reuse — the
+padded-shape buckets, the chunk geometry, the fused chunk unit of its
+backend, its :class:`~repro_torch.engine.executor.Executor` (schedule and
+device pool), and bounded per-graph memos of host-derived chunk
+schedules, of locality permutations and of partition layouts — and
 runs any number of ops in one pass with one device→host copy
 (``stats["host_syncs"]``): :meth:`Plan.run` for one graph,
 :meth:`Plan.run_batch` for B same-bucket graphs, and
@@ -35,6 +35,12 @@ per plan (memoized beside the task memo, counted in
 ``stats["reorders"]``), the backend runs on the relabeled graph, and the
 raw bins map back through ``OpLayout.unpermute``: raw bins are always in
 original vertex ids.
+
+**Partitions.**  With ``config.partitions > 1`` a run is the partitioned
+pass of :mod:`repro_torch.engine.partition` (pool or serial shard
+residency), inside the same ladder and after the relabeling, so the cuts
+fall on the relabeled ids.  Such a plan refuses an op whose
+``delta_local`` is ``False``, and its ``run_batch`` runs member by member.
 """
 from __future__ import annotations
 
@@ -48,7 +54,7 @@ import numpy as np
 import torch
 
 from ..core.census import CensusResult
-from ..core.graph import CSRGraph, GraphArrays, next_pow2
+from ..core.graph import CSRGraph, GraphArrays, next_pow2, tensor_arrays
 from ..core.reorder import compute_permutation, permute_graph
 from ..kernels.ops import (MAX_PACKED_DEGREE, build_arc_flags_device,
                            build_in_csr_device)
@@ -132,12 +138,24 @@ class Plan:
                       "fault_events": []}
         self.requested_backend = backend
         self.degradation: list = []
+        self.partitions = config.resolve_partitions()
+        self.partition_mode = config.resolve_partition_mode()
+        if self.partitions > 1:
+            nonlocal_ops = [op.name for op in self.ops if not op.delta_local]
+            if nonlocal_ops:
+                raise ValueError(
+                    f"partitions={self.partitions} requires every op to "
+                    f"honor the delta_local locality contract, but "
+                    f"{nonlocal_ops} opt out — their kernels may read "
+                    "rows outside a shard's halo; run them unpartitioned "
+                    "(partitions=1)")
         self.executor = Executor(
             config, self.stats,
             pool_devices(device, config.resolve_executor_devices()),
             backend=backend)
         self._task_memo: dict = {}
         self._reorder_memo: dict = {}
+        self._partition_memo: dict = {}
         self._once = self.layout.once_kernel()
         fplan = resolve_faults(config.fault_plan)
         try:
@@ -206,13 +224,30 @@ class Plan:
         CSR census kernel reads; the counts are packed while the graph's
         max degree allows, else wide); ``with_in_csr`` the transpose CSR (the
         six-tile gather's in-arc rows)."""
-        m, a, dev = self.meta, g.arrays, self.device
+        m = self.meta
+        return self.pad_arrays(
+            g.arrays, g.m, g.m_nbr, m.m_out_bucket, m.m_nbr_bucket,
+            wide=g.max_deg > MAX_PACKED_DEGREE, with_in_csr=with_in_csr,
+            with_flags=with_flags)
+
+    def pad_arrays(self, a: GraphArrays, m_out: int, m_nbr: int,
+                   out_len: int, nbr_len: int, *, wide: bool,
+                   with_in_csr: bool = False,
+                   with_flags: bool = False) -> GraphArrays:
+        """Five CSR arrays (tensors, or host numpy such as a shard's local
+        CSR) on the plan's device: ptr arrays padded to ``n_bucket + 1``
+        repeating their last offsets ``m_out`` / ``m_nbr``, idx arrays to
+        ``out_len`` / ``nbr_len``, deg to ``n_bucket``; the flags and
+        transpose CSR as in :meth:`padded_arrays`, the range counts wide
+        when ``wide`` (which comes from the whole graph's max degree)."""
+        nb = self.meta.n_bucket
+        t = tensor_arrays(a, self.device)
         arrays = GraphArrays(
-            out_ptr=_pad_to(a.out_ptr.to(dev), m.n_bucket + 1, g.m),
-            out_idx=_pad_to(a.out_idx.to(dev), m.m_out_bucket, 0),
-            nbr_ptr=_pad_to(a.nbr_ptr.to(dev), m.n_bucket + 1, g.m_nbr),
-            nbr_idx=_pad_to(a.nbr_idx.to(dev), m.m_nbr_bucket, 0),
-            nbr_deg=_pad_to(a.nbr_deg.to(dev), m.n_bucket, 0))
+            out_ptr=_pad_to(t.out_ptr, nb + 1, m_out),
+            out_idx=_pad_to(t.out_idx, out_len, 0),
+            nbr_ptr=_pad_to(t.nbr_ptr, nb + 1, m_nbr),
+            nbr_idx=_pad_to(t.nbr_idx, nbr_len, 0),
+            nbr_deg=_pad_to(t.nbr_deg, nb, 0))
         if with_in_csr:
             in_ptr, in_idx = build_in_csr_device(arrays.out_ptr,
                                                  arrays.out_idx)
@@ -220,7 +255,7 @@ class Plan:
         if with_flags:
             flags, counts = build_arc_flags_device(
                 arrays.out_ptr, arrays.out_idx, arrays.nbr_ptr,
-                arrays.nbr_idx, wide=g.max_deg > MAX_PACKED_DEGREE)
+                arrays.nbr_idx, wide=wide)
             arrays = arrays._replace(nbr_flag=flags, nbr_cnt=counts)
         return arrays
 
@@ -254,10 +289,15 @@ class Plan:
         return g_exec, perm
 
     def _execute_raw(self, g: CSRGraph) -> np.ndarray:
-        """Relabel (memoized), run the backend under the ladder, and map
-        the raw bins back to original vertex ids."""
+        """Relabel (memoized), run the backend — partitioned when the plan
+        has partitions — under the ladder, and map the raw bins back to
+        original vertex ids."""
         g_exec, perm = self._reordered(g)
-        raw = self._laddered(backends.run_full, g_exec)
+        if self.partitions > 1:
+            from .partition import run_partitioned as run
+        else:
+            run = backends.run_full
+        raw = self._laddered(run, g_exec)
         return raw if perm is None else self.layout.unpermute(raw, perm, g)
 
     # -- execution -----------------------------------------------------------
@@ -287,7 +327,9 @@ class Plan:
         costs **one** device→host copy.  Results equal B sequential
         :meth:`run` calls; returns one ``{op_name: result}`` per graph, in
         input order.  Under ``config.reorder`` each member runs relabeled
-        (memoized) and its bins map back before finalize."""
+        (memoized) and its bins map back before finalize.  A partitioned
+        plan runs the members one by one (one copy each), each through
+        its own shard passes."""
         graphs = list(graphs)
         if not graphs:
             return []
@@ -297,6 +339,9 @@ class Plan:
         self.stats["runs"] += len(graphs)
         self.stats["batch_runs"] += 1
         self.stats["batch_graphs"] += len(graphs)
+        if self.partitions > 1:
+            return [self.layout.finalize(self._execute_raw(g), g)
+                    for g in graphs]
         pairs = [self._reordered(g) for g in graphs]
         raws = self._laddered(backends.run_batch, [ge for ge, _ in pairs])
         return [self.layout.finalize(
@@ -378,8 +423,9 @@ def compile(graph_meta, ops=("triad_census",),
     """Build (or fetch from cache) the plan for this graph shape + ops.
 
     ``graph_meta`` is a :class:`CSRGraph` or a :class:`GraphMeta`.  The
-    config's backend, device and pool width are resolved first (``"auto"``
-    → ``"tiles"``, ``None`` → ``"cuda"``, which raises without CUDA), so
+    config's backend, device, pool width and partition fields are resolved
+    first (``"auto"`` → ``"tiles"``, ``None`` → ``"cuda"``, which raises
+    without CUDA; ``partition_mode=None`` → the mode it resolves to), so
     equivalent configs share one cache entry.
     """
     config = config or EngineConfig()
@@ -390,7 +436,10 @@ def compile(graph_meta, ops=("triad_census",),
     device = config.resolve_device()
     config = dataclasses.replace(
         config, backend=backend, device=str(device),
-        n_executor_devices=config.resolve_executor_devices())
+        n_executor_devices=config.resolve_executor_devices(),
+        partitions=config.resolve_partitions(),
+        spill=config.resolve_spill(),
+        partition_mode=config.resolve_partition_mode())
     key = (meta, op_objs, config)
     plan = _PLAN_CACHE.get(key)
     if plan is not None:
@@ -412,11 +461,12 @@ def compile_census(graph_meta, config: Optional[EngineConfig] = None
 
 
 def clear_plan_cache() -> None:
-    """Drop every cached plan, each plan's task and reorder memos, and
-    reset the hit/miss/eviction counters."""
+    """Drop every cached plan, each plan's task, reorder and partition
+    memos, and reset the hit/miss/eviction counters."""
     for p in _PLAN_CACHE.values():
         p._task_memo.clear()
         p._reorder_memo.clear()
+        p._partition_memo.clear()
     _PLAN_CACHE.clear()
     _CACHE_STATS.update(hits=0, misses=0, evictions=0)
 
@@ -431,7 +481,11 @@ def plan_cache_stats() -> dict:
     ``chunks``, ``host_syncs``, ``batch_runs`` / ``batch_graphs``,
     ``delta_runs`` / ``delta_fulls``, ``reorders``, ``device_chunks``:
     chunks per pool slot, ``faults`` / ``fault_events``: the recovery
-    counters and bounded trace)."""
+    counters and bounded trace), the partition policy (``partitions``, 1
+    unpartitioned; ``partition_mode``, None unpartitioned;
+    ``partition_memo``, the live layout-memo entries) and, after a
+    partitioned run, ``partition``: that run's layout and staging record
+    (see :func:`repro_torch.engine.partition.run_partitioned`)."""
     entries = [dict(meta=dataclasses.asdict(p.meta), backend=p.backend,
                     requested_backend=p.requested_backend,
                     degradation=[dict(d) for d in p.degradation],
@@ -440,10 +494,15 @@ def plan_cache_stats() -> dict:
                     n_devices=p.executor.n_devices,
                     task_memo=len(p._task_memo), reorder=p.config.reorder,
                     reorder_memo=len(p._reorder_memo),
+                    partitions=p.partitions,
+                    partition_mode=p.partition_mode,
+                    partition_memo=len(p._partition_memo),
                     **{**p.stats,
                        "device_chunks": dict(p.stats["device_chunks"]),
                        "faults": dict(p.stats["faults"]),
-                       "fault_events": list(p.stats["fault_events"])})
+                       "fault_events": list(p.stats["fault_events"]),
+                       **({"partition": dict(p.stats["partition"])}
+                          if "partition" in p.stats else {})})
                for p in _PLAN_CACHE.values()]
     return {**_CACHE_STATS, "size": len(_PLAN_CACHE),
             "capacity": _CACHE_CAPACITY, "entries": entries}

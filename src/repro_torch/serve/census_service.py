@@ -598,10 +598,13 @@ class CensusService:
                if c - before_dev.get(d, 0)}
         faults = {k: v - before_faults.get(k, 0)
                   for k, v in plan.stats["faults"].items()}
+        part = plan.stats.get("partition")
         return dict(results=results, errors=errors, batch_failed=batch_failed,
                     host_syncs=plan.stats["host_syncs"] - before["host_syncs"],
                     chunks=plan.stats["chunks"] - before["chunks"],
-                    device_chunks=dev, faults=faults)
+                    device_chunks=dev, faults=faults,
+                    partitions=plan.partitions,
+                    partition=dict(part) if part else None)
 
     def _record_outcome(self, key, group, out) -> None:
         """Fold one executed (or failed) group into service state, always
@@ -629,6 +632,10 @@ class CensusService:
         st["chunks"] += out["chunks"]
         for d, c in out["device_chunks"].items():
             self._device_chunks[d] = self._device_chunks.get(d, 0) + c
+        if out["partition"]:
+            # the last partitioned layout this bucket ran
+            st["partitions"] = out["partitions"]
+            st["partition"] = out["partition"]
         for k in ("retries", "quarantines", "backend_fallbacks",
                   "schedule_fallbacks"):
             self._health[k] += out["faults"][k]
@@ -647,7 +654,11 @@ class CensusService:
         counts, ``occupancy`` (batched graphs per flushed batch slot —
         1.0 means every batch left full), the host syncs / chunks its
         batches cost, and ``by_ops`` (requests per ops tuple — the
-        mixed-analytic split).  ``mean_batch`` is the fleet-wide average
+        mixed-analytic split); a bucket served by a partitioned plan also
+        reports ``partitions`` and ``partition``, the last run's shard
+        layout and staging (see
+        :func:`repro_torch.engine.partition.run_partitioned`).
+        ``mean_batch`` is the fleet-wide average
         batch width.  ``devices`` maps each executor pool slot to the
         chunks the service dispatched there (all on slot 0 under the
         static schedule).  ``sessions`` maps each live subscribed-session id

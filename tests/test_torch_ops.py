@@ -223,6 +223,33 @@ def test_arc_free_graph_finalizes_from_zero_bins(backend):
     assert res["dyad_census"].null == 45
 
 
+@pytest.mark.parametrize("n", [3_810_779, 3_810_780, 2**22])
+def test_census_finalize_stays_exact_past_int64(n):
+    # from n = 3,810,780 on (the Patents stand-in has 2**22 vertices)
+    # C(n, 3) passes int64: the counts become exact Python ints, held to
+    # the same closed form computed in Python ints; below, to the JAX
+    # package's finalize
+    import types
+
+    g = types.SimpleNamespace(n=n)
+    raw = np.arange(16, dtype=np.int64) * 10**12
+    c3 = n * (n - 1) * (n - 2) // 6
+    counts = get_op("triad_census").finalize(raw, g).counts
+    assert int(counts.sum()) == c3 and counts[0] == c3 - int(raw.sum())
+    assert list(counts[1:]) == list(raw[1:])
+    assert (counts.dtype == np.int64) == (c3 < 2**63)
+    if c3 >= 2**63:
+        exact = [int(x) for x in raw]
+        exact[0] = c3 - sum(exact[1:])
+        assert [int(x) for x in counts] == exact
+        return
+    pytest.importorskip("jax")
+    from repro.engine.ops import get_op as jget_op
+
+    np.testing.assert_array_equal(
+        jget_op("triad_census").finalize(raw, g).counts, counts)
+
+
 def test_degree_stats_mask_padded_out_idx():
     """Five arcs, none into vertex 0, in an 8-slot arc bucket padded with
     0: vertex 0's in-degree must stay 0."""
