@@ -110,6 +110,21 @@ script exits non-zero and prints no result.  Phases:
              staging bytes; census_csr against its plain version on the
              first and last chunk of each bucket of each shard.  The graph
              and its files go before the flash phase.
+   distributed — ``EngineConfig(backend="distributed")`` over
+             ``torch.distributed``, ranks spawned as processes of their
+             own, every rank on the one card: W = 1 under ``nccl`` and W
+             = 2 under ``gloo``.  Slashdot, four ops: bins on every rank
+             equal to the tiles plan's, cold and warm in turns with it,
+             one all-reduce and one copy a run, census_csr launches equal
+             to the rank's tasks, census_csr against its plain version on
+             the first and last chunk of each bucket of the rank's row and
+             the row timed, the packing's imbalance.  At W = 2 also:
+             Slashdot in 8 shards (``"mesh"``, then ``"serial"``) equal to
+             the unpartitioned bins; a k = 64 delta equal to the full
+             recompute; chunk faults injected on rank 1 only, retried to
+             the clean bins; Amazon's census at its published size.
+             faults_clean after each normal run; a rank's failure fails
+             the script.
 5. flash_kernel — the flash-attention kernel against its plain version
              (``flash_attention_ref``): bf16 at the qwen3-4b prefill shape
              (B 4, T 2048, S 2080, H 32, Hkv 8, D 128) within 2e-2, f32
@@ -132,8 +147,8 @@ script exits non-zero and prints no result.  Phases:
              flash path against the dense path (<= 1e-3), and decode
              logits against the full forward at every position (<= 1e-3).
 8. the kernels line (census_csr's row adds its launches in the fused,
-   fleet, session, dynamic, reorder, faults, partition and patents
-   phases), then the result line.
+   fleet, session, dynamic, reorder, faults, partition, distributed (per
+   rank) and patents phases), then the result line.
 
 Exits non-zero without a CUDA device.
 """
@@ -1645,6 +1660,14 @@ PARTITION_RUNS = {
 SHARED_SLOTS = {"pool_dynamic": 2}
 
 
+def bucket_ends(tasks):
+    """The first and last task of each bucket of a task list."""
+    ends = {}
+    for t in tasks:
+        ends.setdefault(t.key, []).append(t)
+    return [t for ts in ends.values() for t in dict.fromkeys((ts[0], ts[-1]))]
+
+
 def shard_streams(plan, g):
     """Each non-empty shard of ``g`` as the engine stages it for ``plan``:
     ``(shard, TilesStream)`` with the shard's local arrays and flags, its
@@ -1673,13 +1696,7 @@ def shard_kernel_check(torch, plan, g, rates, label, ends_only):
     out = dict(chunks=0, kernel_ms=0.0, plain_ms=0.0, bound_ms=0.0,
                max_abs_err=0)
     for shard, st in shard_streams(plan, g):
-        tasks = st.tasks
-        if ends_only:
-            ends = {}
-            for t in tasks:
-                ends.setdefault(t.key, []).append(t)
-            tasks = [t for ts in ends.values()
-                     for t in dict.fromkeys((ts[0], ts[-1]))]
+        tasks = bucket_ends(st.tasks) if ends_only else st.tasks
         buckets = csr_kernel_phase(torch, g, st, tasks, rates,
                                    f"{label}_shard{shard.index}")
         for b in buckets.values():
@@ -1963,6 +1980,288 @@ def patents_phase(torch, dev, rates):
         shutil.rmtree(scratch, ignore_errors=True)
     torch.cuda.empty_cache()
     return launches
+
+
+# the distributed phase: (name, backend, ranks) of each spawn; every rank
+# runs on the one card (NCCL refuses two ranks on one device, gloo shares)
+DIST_RUNS = (("nccl_w1", "nccl", 1), ("gloo_w2", "gloo", 2))
+DIST_TIMEOUT_S = 120  # the process group's bound on a stuck collective
+DIST_FAULT = dict(seed=16, chunk_failure_rate=0.2, fail_attempts=1)
+DIST_REPS = 3
+
+
+def counts_now(plan):
+    """This rank's census_csr launches, all-reduces, and ``plan``'s copies
+    and chunks so far."""
+    from repro_torch.core.distributed import merge_over_mesh
+    from repro_torch.kernels.triad_census import census_csr
+
+    return dict(launches=census_csr.launches, syncs=plan.stats["host_syncs"],
+                merges=merge_over_mesh.collectives,
+                chunks=plan.stats["chunks"])
+
+
+def check_rank_run(plan, raw, want, before, label, after=None):
+    """One distributed run on this rank: bins equal ``want``, one merge,
+    one copy, and one census_csr launch per chunk the rank dispatched
+    (``before`` and ``after``, by default now: :func:`counts_now` around
+    the run).  Returns the rank's launches."""
+    import numpy as np
+
+    after = after or counts_now(plan)
+    launches, merges, syncs, chunks = (
+        after[k] - before[k] for k in ("launches", "merges", "syncs",
+                                       "chunks"))
+    check(np.array_equal(raw, want), f"{label}: distributed bins "
+          f"{np.asarray(raw).tolist()} != {np.asarray(want).tolist()}")
+    check(merges == 1 and syncs == 1,
+          f"{label}: {merges} all-reduces and {syncs} host copies")
+    check(launches == chunks > 0,
+          f"{label}: {launches} census_csr launches for {chunks} chunks")
+    return launches
+
+
+def rank_census_phase(torch, dev, mesh, g, ops, rates, label):
+    """One graph on this rank: the tiles plan and the distributed plan,
+    cold, then warm in turns (each start aligned by a barrier); the
+    distributed bins equal the tiles bins, one merge and one copy a run,
+    launches equal to the rank's tasks; census_csr against its plain
+    version on the first and last chunk of each bucket of the rank's row
+    and its whole row timed.  Returns the warm run's launches."""
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import mesh_rank
+    from repro_torch.engine import EngineConfig, compile
+    from repro_torch.engine.backends import (TilesStream, _upload_dyads,
+                                             chunk_dyads, rank_share,
+                                             tiles_geometry)
+    from repro_torch.kernels.triad_census import census_csr
+
+    tiles = compile(g, ops, EngineConfig(backend="tiles", device=dev))
+    plan = compile(g, ops, EngineConfig(backend="distributed", device=dev),
+                   mesh=mesh)
+    times = {"tiles": [], "distributed": []}
+    want = launches = None
+    for _ in range(1 + DIST_REPS):  # cold, then warm
+        for name, p in (("tiles", tiles), ("distributed", plan)):
+            before = counts_now(p)
+            dist.barrier()
+            t0 = time.perf_counter()
+            raw = p.run_raw(g)
+            times[name].append(time.perf_counter() - t0)
+            if want is None:
+                want = raw
+            if name == "distributed":
+                launches = check_rank_run(p, raw, want, before, label)
+    u, v, tasks, stats = rank_share(plan, g)
+    check(launches == len(tasks), f"{label}: {launches} launches for "
+                                  f"{len(tasks)} rank tasks")
+    block, chunk, _ = tiles_geometry(plan)
+    arrays = plan.padded_arrays(g, with_flags=True)
+    su, sv = _upload_dyads(plan, u, v)
+    st = TilesStream(arrays, su, sv, tasks, chunk, block)
+    checked = csr_kernel_phase(torch, g, st, bucket_ends(tasks), rates,
+                               f"{label}_rank{mesh_rank(mesh)}")
+    inputs = [chunk_dyads(su, sv, t, chunk)[:2] + (t.key,) for t in tasks]
+    row_ms = event_ms(torch, lambda: [census_csr(
+        cu, cv, g.n, arrays, k=k, block=block) for cu, cv, k in inputs],
+        reps=DIST_REPS)
+    emit("distributed_run", graph=label, ops=list(ops),
+         rank=mesh_rank(mesh), ranks=int(mesh.size()), dyads=g.n_dyads,
+         rank_dyads=len(u), rank_tasks=len(tasks), launches=launches,
+         merges_per_run=1, host_syncs_per_run=1,
+         imbalance=stats.imbalance, rank_weights=stats.weights.tolist(),
+         cold_s=times["distributed"][0], tiles_cold_s=times["tiles"][0],
+         warm_s=times["distributed"][1:], tiles_warm_s=times["tiles"][1:],
+         row_kernel_ms=row_ms,
+         checked_chunks=sum(b["chunks"] for b in checked.values()),
+         max_abs_err=max(b["max_abs_err"] for b in checked.values()),
+         equal_to_tiles=True)
+    faults_clean(label)
+    return launches
+
+
+def rank_partition_phase(torch, dev, mesh, g, raw_fused, label):
+    """Slashdot in ``PARTITIONS`` shards on the distributed backend, the
+    four ops, ``"mesh"`` then ``"serial"``: bins equal to the
+    unpartitioned run, one merge and one copy, a launch per chunk the
+    rank dispatched; cold and warm.  Returns the launches per mode."""
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import mesh_rank
+    from repro_torch.engine import EngineConfig, compile
+
+    out = {}
+    for mode in ("mesh", "serial"):
+        plan = compile(g, FUSED_OPS, EngineConfig(
+            backend="distributed", device=dev, partitions=PARTITIONS,
+            partition_mode=mode), mesh=mesh)
+        walls = []
+        for _ in range(1 + DIST_REPS):
+            before = counts_now(plan)
+            dist.barrier()
+            t0 = time.perf_counter()
+            raw = plan.run_raw(g)
+            walls.append(time.perf_counter() - t0)
+            out[mode] = check_rank_run(plan, raw, raw_fused, before,
+                                       f"{label}_{mode}")
+        ps = plan.stats["partition"]
+        emit("distributed_partition", graph=label, mode=mode,
+             partitions=PARTITIONS, rank=mesh_rank(mesh),
+             shards=sorted(ps["shard_times"]), launches=out[mode],
+             h2d_puts=ps["h2d_puts"], cold_s=walls[0], warm_s=walls[1:],
+             equal_to_unpartitioned=True)
+        faults_clean(f"{label}_{mode}")
+    return out
+
+
+def rank_delta_fault_phase(torch, dev, mesh, g, rank, label):
+    """A k = 64 delta on the distributed plan (four ops), equal to the
+    full recompute on the card, one merge and one copy; then chunk faults
+    injected on rank 1 only (``DIST_FAULT``), retried to the clean bins,
+    ``retries`` equal to the rank's selected chunks.  Returns the
+    launches of each."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.engine import (EngineConfig, FaultPlan,
+                                    clear_plan_cache, compile)
+    from repro_torch.engine.backends import rank_share
+
+    clear_plan_cache()
+    plan = compile(g, FUSED_OPS, EngineConfig(
+        backend="distributed", device=dev, delta_threshold=1.0), mesh=mesh)
+    raw = plan.run_raw(g)
+    delta = footprint_delta(g, 64, np.random.default_rng(64))
+    before = counts_now(plan)
+    dist.barrier()
+    t0 = time.perf_counter()
+    res = plan.apply_delta(g, delta, raw)
+    delta_s = time.perf_counter() - t0
+    after = counts_now(plan)
+    check(res.mode == "delta", f"{label}: delta ran {res.mode}")
+    full = compile(res.graph, FUSED_OPS, EngineConfig(
+        backend="tiles", device=dev)).run_raw(res.graph)
+    delta_launches = check_rank_run(plan, res.raw, full, before,
+                                    f"{label}_delta", after)
+    emit("distributed_delta", graph=label, k=64, rank=rank,
+         launches=delta_launches, seconds=delta_s, equal_to_full=True)
+    faults_clean(f"{label}_delta")
+
+    fault = FaultPlan(**DIST_FAULT) if rank == 1 else FaultPlan()
+    plan = compile(g, FUSED_OPS, EngineConfig(
+        backend="distributed", device=dev, fault_plan=fault), mesh=mesh)
+    before = counts_now(plan)
+    raw_f = plan.run_raw(g)
+    tasks = rank_share(plan, g)[2]
+    selected = sum(fault.chunk_fails(t.start, 1) for t in tasks)
+    check(plan.stats["faults"]["retries"] == selected
+          and (rank != 1 or selected > 0),
+          f"{label}: {plan.stats['faults']} for {selected} selected chunks")
+    # a failed attempt launches nothing: the fault fires before dispatch
+    fault_launches = check_rank_run(plan, raw_f, raw, before,
+                                    f"{label}_faults")
+    emit("distributed_faults", graph=label, rank=rank, selected=selected,
+         retries=plan.stats["faults"]["retries"], launches=fault_launches,
+         equal_to_clean=True)
+    clear_plan_cache()
+    return delta_launches, fault_launches
+
+
+def distributed_rank(rank, world, backend, tmp, dev_name="cuda"):
+    """One rank of a distributed phase spawn: every rank on the one card
+    (device index 0), a ``backend`` process group of ``world`` ranks
+    through a ``file://`` store in ``tmp``, its stdout to ``tmp``.  Runs
+    Slashdot's four ops; with two ranks also Amazon's census, Slashdot in
+    ``PARTITIONS`` shards, a delta and faults on rank 1."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    sys.stdout = open(os.path.join(tmp, f"rank{rank}.out"), "w",
+                      buffering=1)
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.core import generators
+    from repro_torch.engine import EngineConfig, clear_plan_cache, compile
+
+    dev = torch.device(dev_name)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(
+        backend, init_method=f"file://{os.path.join(tmp, 'pg')}",
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    try:
+        mesh = init_device_mesh(dev.type, (world,))
+        rates = json.loads(os.environ["CHIP_SMOKE_RATES"])
+        label = f"{backend}_w{world}"
+        launches = {}
+        g = generators.paper_profile("slashdot", scale_down=1.0, seed=0,
+                                     device=dev)
+        launches["slashdot"] = rank_census_phase(
+            torch, dev, mesh, g, FUSED_OPS, rates, f"slashdot_{label}")
+        if world > 1:
+            raw_fused = compile(g, FUSED_OPS, EngineConfig(
+                backend="tiles", device=dev)).run_raw(g)
+            clear_plan_cache()
+            launches.update({f"p{PARTITIONS}_{k}": v for k, v in
+                             rank_partition_phase(
+                                 torch, dev, mesh, g, raw_fused,
+                                 f"slashdot_{label}").items()})
+            launches["delta"], launches["faults"] = rank_delta_fault_phase(
+                torch, dev, mesh, g, rank, f"slashdot_{label}")
+            del g
+            clear_plan_cache()
+            ga = generators.paper_profile("amazon", scale_down=1.0, seed=0,
+                                          device=dev)
+            launches["amazon"] = rank_census_phase(
+                torch, dev, mesh, ga, ("triad_census",), rates,
+                f"amazon_{label}")
+        emit("distributed_rank_done", label=label, rank=rank,
+             launches=launches)
+    finally:
+        dist.destroy_process_group()
+        sys.stdout.close()
+
+
+def distributed_phase(torch, rates, rank_fn=distributed_rank,
+                      dev_name="cuda"):
+    """The distributed backend on the card: each of ``DIST_RUNS`` spawns
+    its ranks (``spawn`` start method), each rank's JSON lines re-emitted
+    with its rank; a rank's failure fails the phase.  Returns the
+    census_csr launches of every rank's runs."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    os.environ["CHIP_SMOKE_RATES"] = json.dumps(rates)
+    out = {}
+    for name, backend, world in DIST_RUNS:
+        tmp = tempfile.mkdtemp(prefix="chip-smoke-dist-")
+        t0 = time.perf_counter()
+        try:
+            mp.spawn(rank_fn, args=(world, backend, tmp, dev_name),
+                     nprocs=world, join=True)
+            done = []
+            for r in range(world):
+                with open(os.path.join(tmp, f"rank{r}.out")) as f:
+                    for line in f:
+                        rec = json.loads(line)
+                        print(json.dumps({**rec, "spawn": name,
+                                          "rank": r}), flush=True)
+                        if rec["phase"] == "distributed_rank_done":
+                            done.append(rec["launches"])
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        check(len(done) == world, f"{name}: {len(done)} of {world} ranks "
+                                  "finished")
+        out[name] = done
+        emit("distributed_spawn", name=name, backend=backend, ranks=world,
+             seconds=time.perf_counter() - t0)
+    return out
 
 
 def main() -> int:
@@ -2254,6 +2553,11 @@ def run(dev) -> int:
     del g
     torch.cuda.empty_cache()
     csr_row.update(patents_launches=patents_phase(torch, dev, rates))
+
+    # 4k. the distributed backend: ranks in processes of their own ----------
+    clear_plan_cache()
+    torch.cuda.empty_cache()
+    csr_row.update(distributed_launches=distributed_phase(torch, rates))
 
     # 5.-7. the flash kernel and the serving path -----------------------------
     flash = flash_kernel_phase(torch, dev)

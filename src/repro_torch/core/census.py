@@ -21,6 +21,8 @@ JAX program's, so per-batch partials are identical.
 """
 from __future__ import annotations
 
+import math
+import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -245,6 +247,63 @@ def dyad_buckets(g: CSRGraph, u: np.ndarray, v: np.ndarray, ks: tuple
                       np.maximum(out_deg[u], out_deg[v])).astype(np.int64)
     ks_arr = np.asarray(ks, dtype=np.int64)
     return need, (need[:, None] > ks_arr[None, :]).sum(1)
+
+
+def make_census_fn(g: CSRGraph, *, batch: int = 256,
+                   K: "int | None" = None):
+    """Deprecated: a census function for graphs shaped like ``g``.
+
+    Returns ``census(arrays, n, u, v, valid) -> (steps, 16)`` int64
+    per-batch partials over dyads already padded to a multiple of
+    ``batch`` (:func:`pad_dyads`), through the binary-search batch program
+    (:func:`make_census_batch_fn`, the ``"search"`` backend's unit);
+    ``arrays`` are the graph's tensors on the dyads' device.  Null triads
+    (type 003) are not counted.  ``K`` is accepted for the JAX package's
+    signature; the ragged program needs no tile width."""
+    warnings.warn(
+        "repro_torch.core.census.make_census_fn is deprecated; use "
+        "repro_torch.engine.compile(graph, ('triad_census',), config)",
+        DeprecationWarning, stacklevel=2)
+    member_iters = max(1, math.ceil(math.log2(
+        max(g.max_deg, g.max_out_deg, K or 0, 1) + 1))) + 1
+    batch_fn = make_census_batch_fn(member_iters)
+    deg = g.host.nbr_deg.astype(np.int64)
+
+    def census(arrays: GraphArrays, n, u, v, valid) -> torch.Tensor:
+        uh, vh, vah = (np.asarray(torch.as_tensor(x).cpu())
+                       for x in (u, v, valid))
+        dev = arrays.nbr_ptr.device
+        parts = []
+        for s in range(0, len(uh), batch):
+            sl = slice(s, s + batch)
+            n_cand = int((deg[uh[sl]] + deg[vh[sl]])[vah[sl]].sum())
+            parts.append(batch_fn(
+                arrays, int(n), torch.from_numpy(uh[sl]).to(dev),
+                torch.from_numpy(vh[sl]).to(dev),
+                torch.from_numpy(vah[sl]).to(dev), n_cand))
+        if not parts:
+            return torch.zeros((0, 16), dtype=torch.int64, device=dev)
+        return torch.stack(parts)
+
+    return census
+
+
+def triad_census(g: CSRGraph, *, batch: int = 256,
+                 K: "int | None" = None) -> CensusResult:
+    """Deprecated: the census of ``g`` on its device.
+
+    .. deprecated:: a shim over ``repro_torch.engine.compile_census(g,
+       CensusConfig(backend="search", ...)).run(g)`` (the JAX package's
+       forwards to ``"xla"``)."""
+    from ..engine import CensusConfig, compile_census
+
+    warnings.warn(
+        "repro_torch.core.triad_census is deprecated; use "
+        "repro_torch.engine.compile_census(graph, CensusConfig(...))"
+        ".run(graph)", DeprecationWarning, stacklevel=2)
+    cfg = CensusConfig(backend="search", batch=batch, k=K,
+                       device=str(g.device))
+    return compile_census(g, cfg).run(g)
 
 
 def brute_force_census(g: CSRGraph) -> CensusResult:

@@ -22,6 +22,11 @@ Backends (counterparts of the JAX engine's):
                 degree-bucketed dyads, every other op's torch program on
                 the same chunks (JAX: "pallas")
     "search"  — the binary-search batch program as torch ops (JAX: "xla")
+    "distributed" — SPMD over a torch.distributed device mesh: each rank
+                runs its static task row (core/balance.pack_tasks) through
+                the tiles chunk unit, then one int64 all-reduce per mesh
+                dimension and one copy (``compile(..., mesh=)``; JAX:
+                "distributed")
     "auto"    — "tiles"
 
 Execution policy (``EngineConfig``): ``schedule="static"|"dynamic"``
@@ -39,8 +44,9 @@ partition`, :mod:`repro_torch.engine.partition`):
 vertex-range shards balanced by owned canonical dyads, each a local CSR
 with a halo of the remote rows its dyads read, and runs every shard pass
 through the plan's own chunk unit (on tiles, the CUDA census kernel),
-all shards resident at once (``partition_mode="pool"``) or one at a time
-(``"serial"``); bins equal the unpartitioned ones, one copy per run.
+all shards resident at once (``partition_mode="pool"``), one at a time
+(``"serial"``), or dealt over a distributed plan's ranks (``"mesh"``);
+bins equal the unpartitioned ones, one copy per run.
 ``spill=True`` stages shard dyad lists through memory-mapped files, and
 :func:`repro_torch.core.graph.from_edges_mmap` keeps the graph itself in
 memory-mapped files.

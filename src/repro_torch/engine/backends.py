@@ -1,9 +1,10 @@
-"""Backend drivers of the census engine: ``"tiles"`` and ``"search"``.
+"""The backends of the census engine: ``"tiles"``, ``"search"`` and
+``"distributed"``.
 
-Counterpart of the ``"pallas"`` and ``"xla"`` device-resident paths of
-:mod:`repro.engine.backends` and of the subset passes of
-:mod:`repro.engine.delta`.  Every driver keeps its work on the plan's
-device: dyads are enumerated (and, for the census on tiles,
+Counterpart of the ``"pallas"``, ``"xla"`` and ``"distributed"``
+device-resident paths of :mod:`repro.engine.backends` and of the subset
+passes of :mod:`repro.engine.delta`.  Every pass keeps its work on the
+plan's device: dyads are enumerated (and, for the census on tiles,
 bucket-sorted) on the device, each chunk unit returns its
 ``(total_bins,)`` int64 contribution, the plan's
 :class:`~repro_torch.engine.executor.Executor` adds it into an
@@ -23,6 +24,15 @@ subset pass takes an ``arrays=`` override, the hook of the partitioned
 engine (:mod:`repro_torch.engine.partition`): a shard pass is a subset
 pass over the shard's dyads and its local CSR, whose once contributions
 are the caller's to fold (they are whole-graph functions).
+
+The distributed backend runs each pass as this rank's share of it, SPMD
+over the plan's mesh (:mod:`repro_torch.core.distributed`): a full pass
+takes the rank's row of :func:`~repro_torch.core.balance.pack_tasks`
+(memoized per graph), a subset pass the rank's round-robin share of the
+dyad list, both through the tiles chunk unit — ``census_csr`` — on the
+rank's device; the once contributions are folded on rank 0 only; and the
+one copy of a run, batch or delta is preceded by the merge, one int64
+all-reduce per mesh dimension (:func:`_collect`).
 """
 from __future__ import annotations
 
@@ -36,12 +46,30 @@ from ..core import balance
 from ..core.census import (canonical_dyads, dyad_buckets,
                            enumerate_dyads_device, host_bucket_schedule,
                            sort_dyads_by_bucket)
+from ..core.distributed import merge_over_mesh, mesh_rank, mesh_size
 from ..core.graph import CSRGraph, GraphArrays
 from ..kernels.ops import TILE_NAMES, gather_tiles_device
 from ..kernels.triad_census import SENTINEL, census_csr
 from .executor import ChunkTask, _acc_fetch
 
 CENSUS = "triad_census"
+
+
+class TaskStats(NamedTuple):
+    """The per-rank load summary a distributed run keeps on the plan
+    (``plan.last_task_stats``): the modeled work of each rank's task row,
+    not the task arrays (plans live in the cache)."""
+
+    weights: np.ndarray  # (W,) modeled per-rank work
+    strategy: str
+    weight_model: str
+    shape: tuple  # (W, L) of the packed task arrays
+
+    @property
+    def imbalance(self) -> float:
+        """max/mean modeled work — 1.0 is perfect."""
+        mean = self.weights.mean()
+        return float(self.weights.max() / mean) if mean > 0 else 1.0
 
 
 def _memo_tasks(plan, g: CSRGraph, key, build) -> "list[ChunkTask]":
@@ -90,9 +118,18 @@ def _span_tasks(plan, g: CSRGraph, D: int, chunk: int,
             for s in range(0, D, chunk)]
 
 
+def folds_once(plan) -> bool:
+    """Whether this process folds the plan's once contributions: a plan
+    with once kernels does, on a distributed plan rank 0 only, since the
+    merge sums every rank's accumulator."""
+    return plan._once is not None and (plan.backend != "distributed"
+                                       or mesh_rank(plan.mesh) == 0)
+
+
 def _fold_once(plan, acc: torch.Tensor, arrays: GraphArrays, n: int) -> None:
-    """Add the plan's once contributions for one graph into ``acc``."""
-    if plan._once is not None:
+    """Add the plan's once contributions for one graph into ``acc`` (when
+    :func:`folds_once`)."""
+    if folds_once(plan):
         acc += plan._once(arrays, n)
 
 
@@ -320,8 +357,10 @@ def tiles_pass(plan, g: CSRGraph, acc: torch.Tensor) -> None:
 
 def needs_flags(plan) -> bool:
     """Whether the plan's passes read the arc flags and range counts: the
-    census on tiles."""
-    return plan.backend == "tiles" and CENSUS in plan.layout.slices
+    census on tiles (and on the distributed backend, whose ranks run the
+    tiles chunk unit)."""
+    return (plan.backend in ("tiles", "distributed")
+            and CENSUS in plan.layout.slices)
 
 
 def subset_schedule(plan, g: CSRGraph, u: np.ndarray, v: np.ndarray):
@@ -367,17 +406,75 @@ def subset_pass(plan, g: CSRGraph, u: np.ndarray, v: np.ndarray,
         _fold_once(plan, acc, arrays, g.n)
     if not len(u):
         return
-    u, v, tasks = subset_schedule(plan, g, u, v)
+    _dispatch(plan, g, arrays, *subset_schedule(plan, g, u, v), acc)
+
+
+def _dispatch(plan, g: CSRGraph, arrays, u, v, tasks, acc) -> None:
+    """Upload the dispatch-ordered dyads ``(u, v)`` once and run ``tasks``
+    over them and ``arrays`` into ``acc``."""
     plan.executor.run(tasks, place=_placer(arrays, *_upload_dyads(plan, u, v)),
                       step=make_step(plan, g.n), init=acc)
+
+
+# ----------------------------------------------------------------------------
+# distributed: this rank's share of each pass, merged over the mesh
+# ----------------------------------------------------------------------------
+
+
+def rank_share(plan, g: CSRGraph):
+    """This rank's share of ``g``'s full distributed pass: ``(u, v, tasks,
+    task_stats)``, the rank's row of ``balance.pack_tasks(g, W, ...)``
+    without its padding slots, in :func:`subset_schedule`'s dispatch
+    order.  Every rank packs the same way (the packing is deterministic),
+    so the rows partition the dyads without a word exchanged.  Memoized
+    per graph like the chunk schedules (:func:`_memo_tasks`)."""
+    W, r = mesh_size(plan.mesh), mesh_rank(plan.mesh)
+    cfg = plan.config
+
+    def build():
+        packed = balance.pack_tasks(g, W, weight_model=cfg.weight_model,
+                                    strategy=cfg.strategy,
+                                    pad_multiple=cfg.batch)
+        keep = packed.valid[r]
+        u, v, tasks = subset_schedule(plan, g, packed.u[r][keep],
+                                      packed.v[r][keep])
+        return u, v, tasks, TaskStats(packed.weights, packed.strategy,
+                                      packed.weight_model, packed.u.shape)
+
+    return _memo_tasks(plan, g, ("distributed", W, r, cfg.strategy), build)
+
+
+def distributed_pass(plan, g: CSRGraph, acc: torch.Tensor) -> None:
+    """Add this rank's share of ``g``'s full pass (:func:`rank_share`, and
+    on rank 0 the once contributions) into ``acc``; records the packing's
+    load summary in ``plan.last_task_stats``."""
+    u, v, tasks, stats = rank_share(plan, g)
+    plan.last_task_stats = stats
+    arrays = plan.padded_arrays(g, with_flags=needs_flags(plan))
+    _fold_once(plan, acc, arrays, g.n)
+    if tasks:
+        _dispatch(plan, g, arrays, u, v, tasks, acc)
+
+
+def distributed_subset_pass(plan, g: CSRGraph, u: np.ndarray, v: np.ndarray,
+                            acc: torch.Tensor, *, arrays=None) -> None:
+    """This rank's share of a subset pass: the dyads dealt round-robin,
+    rank ``r`` taking ``r::W`` (as the JAX package deals ``i % W``), run
+    like :func:`subset_pass`; the once contributions (unless ``arrays``
+    overrides the graph's arrays) on rank 0 only."""
+    W, r = mesh_size(plan.mesh), mesh_rank(plan.mesh)
+    subset_pass(plan, g, np.asarray(u)[r::W], np.asarray(v)[r::W], acc,
+                arrays=arrays)
 
 
 # ----------------------------------------------------------------------------
 # drivers: one run, a batch, a delta correction — one counted copy each
 # ----------------------------------------------------------------------------
 
-#: backend name -> full pass
-PASSES = {"tiles": tiles_pass, "search": search_pass}
+#: backend name -> full pass (on the distributed backend, this rank's
+#: share of it)
+PASSES = {"tiles": tiles_pass, "search": search_pass,
+          "distributed": distributed_pass}
 
 
 def _zeros(plan, *shape) -> torch.Tensor:
@@ -385,39 +482,60 @@ def _zeros(plan, *shape) -> torch.Tensor:
                        device=plan.device)
 
 
+def _collect(plan, fill, *shape) -> np.ndarray:
+    """``fill(acc)`` into a fresh ``(*shape, total_bins)`` accumulator,
+    then the one counted copy of its bins.  On the distributed backend
+    ``fill`` adds this rank's share and the merge over the plan's mesh
+    (one all-reduce per mesh dimension) comes first; a failure of any
+    rank's ``fill`` raises on every rank
+    (:func:`~repro_torch.core.distributed.merge_over_mesh`)."""
+    acc = _zeros(plan, *shape)
+    if plan.backend == "distributed":
+        return merge_over_mesh(plan.mesh, acc, fill, stats=plan.stats)
+    fill(acc)
+    return _acc_fetch(plan, acc)
+
+
 def run_full(plan, g: CSRGraph) -> np.ndarray:
     """Full pass of ``g``; returns the raw int64 bins.  An arc-free graph
     runs nothing and returns zeros (the ops' finalize covers it)."""
     if g.n_dyads == 0:
         return np.zeros(plan.layout.total_bins, dtype=np.int64)
-    acc = _zeros(plan)
-    PASSES[plan.backend](plan, g, acc)
-    return _acc_fetch(plan, acc)
+    return _collect(plan, lambda acc: PASSES[plan.backend](plan, g, acc))
 
 
 def run_batch(plan, graphs) -> np.ndarray:
     """Full passes of B graphs into one ``(B, total_bins)`` accumulator,
-    each member's chunks into its own row, and one copy for the batch.
-    Returns the ``(B, total_bins)`` raw int64 bins."""
-    acc = _zeros(plan, len(graphs))
-    for row, g in zip(acc, graphs):
-        if g.n_dyads:
-            PASSES[plan.backend](plan, g, row)
-    return _acc_fetch(plan, acc)
+    each member's chunks into its own row, and one copy (on the
+    distributed backend one merge) for the batch.  Returns the ``(B,
+    total_bins)`` raw int64 bins."""
+    def fill(acc):
+        for row, g in zip(acc, graphs):
+            if g.n_dyads:
+                PASSES[plan.backend](plan, g, row)
+
+    return _collect(plan, fill, len(graphs))
 
 
 def run_subsets(plan, g_old: CSRGraph, old, g_new: CSRGraph,
                 new) -> np.ndarray:
     """Exact ``raw(g_new) - raw(g_old)`` over the dyad lists ``old`` of
     ``g_old`` and ``new`` of ``g_new``: two subset passes (partitioned
-    ones on a partitioned plan), their difference taken on the device in
-    int64 (it may be negative), one copy."""
+    ones on a partitioned plan, this rank's share on a distributed one)
+    into two rows of one accumulator, their difference taken on the
+    device in int64 (it may be negative), one copy (one merge)."""
     if plan.partitions > 1:
         from .partition import subset_partitioned as subset
+    elif plan.backend == "distributed":
+        subset = distributed_subset_pass
     else:
         subset = subset_pass
-    acc = _zeros(plan, 2)
-    for row, g, (u, v) in ((acc[0], g_old, old), (acc[1], g_new, new)):
-        if g.n_dyads:
-            subset(plan, g, u, v, row)
-    return _acc_fetch(plan, acc[1] - acc[0])
+
+    def fill(acc):
+        both = _zeros(plan, 2)
+        for row, g, (u, v) in ((both[0], g_old, old), (both[1], g_new, new)):
+            if g.n_dyads:
+                subset(plan, g, u, v, row)
+        acc += both[1] - both[0]
+
+    return _collect(plan, fill)

@@ -1,8 +1,7 @@
 """Engine configuration: the knobs of the port's census engine.
 
-Counterpart of :mod:`repro.engine.config` (the ``"mesh"`` partition mode
-comes with the distributed backend, which the port does not have yet).
-One frozen, hashable dataclass,
+Counterpart of :mod:`repro.engine.config`.  One frozen, hashable
+dataclass,
 :class:`EngineConfig`; it is part of the plan-cache key.
 :data:`CensusConfig` is the same class under its census-era name.
 """
@@ -13,14 +12,14 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..core.balance import WEIGHTS
+from ..core.balance import PACKING, WEIGHTS
 from ..core.graph import resolve_device
 from .faults import FaultPlan
 
-BACKENDS = ("tiles", "search", "auto")
+BACKENDS = ("tiles", "search", "distributed", "auto")
 SCHEDULES = ("static", "dynamic")
 REORDERS = ("none", "degree", "bfs", "rcm")
-PARTITION_MODES = ("serial", "pool")
+PARTITION_MODES = ("serial", "pool", "mesh")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,8 +31,12 @@ class EngineConfig:
             hand-written CUDA census kernel, which reads the CSR rows
             directly; the counterpart of the JAX ``"pallas"`` backend),
             ``"search"`` (the binary-search batch program as torch ops;
-            the counterpart of ``"xla"``), or ``"auto"`` (resolves to
-            ``"tiles"``).
+            the counterpart of ``"xla"``), ``"distributed"`` (one rank
+            per process over a ``torch.distributed`` device mesh, each
+            rank's share of the dyads through the tiles chunk unit, one
+            all-reduce per mesh dimension per run; see
+            :mod:`repro_torch.core.distributed`), or ``"auto"``
+            (resolves to ``"tiles"``).
         device: torch device the plan runs on.  ``None`` means ``"cuda"``;
             pass ``"cpu"`` to run on the CPU (the tiles backend then runs
             the kernel's plain torch version).  Asking for CUDA on a
@@ -76,10 +79,16 @@ class EngineConfig:
             (normalized to 1 under ``"static"``).  On ``"cuda"`` it is
             clamped to ``torch.cuda.device_count()`` and ``None`` means
             every device; on ``"cpu"`` it is that many CPU slots (worker
-            threads) as given, and ``None`` means one.
+            threads) as given, and ``None`` means one.  Pinned to 1 on the
+            distributed backend, whose mesh owns the devices.
         weight_model: the dyad cost model of the dynamic schedule on the
-            search backend and of tiles plans without the census (see
+            search backend and of tiles plans without the census, and
+            the task weights of the distributed backend's packing (see
             :mod:`repro_torch.core.balance`).
+        strategy: how the distributed backend packs the canonical dyads
+            into one task row per rank (``balance.PACKING``:
+            ``"greedy_sequential"``, ``"sorted_snake"``,
+            ``"greedy_lpt"``).
         max_attempts: dispatch budget per chunk (>= 1; 1 disables
             retry).  A chunk's contribution is folded only when its
             attempt succeeds, so recovered runs are bit-identical.
@@ -135,8 +144,12 @@ class EngineConfig:
             owner shard's resident arrays on the device, and drives all
             shards' tasks through the executor pool at once; ``"serial"``
             (the default under ``spill``) holds one shard on the plan's
-            device at a time — the out-of-core mode.  ``"mesh"`` belongs
-            to the distributed backend, not ported yet.
+            device at a time — the out-of-core mode.  ``"mesh"`` (the
+            default on the distributed backend, and only there) deals the
+            shards over the mesh's ranks, rank ``r`` running shards ``r,
+            r + W, ...`` each over its local CSR; ``"serial"`` on that
+            backend splits every shard's dyads across the ranks.
+            ``"pool"`` is refused there: the mesh owns the devices.
     """
 
     backend: str = "auto"
@@ -151,6 +164,7 @@ class EngineConfig:
     schedule: str = "static"
     n_executor_devices: Optional[int] = None
     weight_model: str = "canonical_uniform"
+    strategy: str = "sorted_snake"
     max_attempts: int = 3
     backend_fallback: bool = False
     schedule_fallback: bool = True
@@ -203,6 +217,9 @@ class EngineConfig:
         if self.weight_model not in WEIGHTS:
             raise ValueError(f"weight_model must be one of {WEIGHTS}, got "
                              f"{self.weight_model!r}")
+        if self.strategy not in PACKING:
+            raise ValueError(f"strategy must be one of {PACKING}, got "
+                             f"{self.strategy!r}")
         if self.max_attempts < 1:
             raise ValueError(
                 f"max_attempts must be >= 1 (got {self.max_attempts}); it "
@@ -240,12 +257,6 @@ class EngineConfig:
                 "dyad lists through memory-mapped temp files, a string "
                 "names the scratch directory")
         if self.partition_mode is not None:
-            if self.partition_mode == "mesh":
-                raise ValueError(
-                    "partition_mode='mesh' runs shard waves on the "
-                    "distributed backend's device mesh, which the port "
-                    "does not have yet: it comes with the torch.distributed "
-                    "backend — use partition_mode='pool' or 'serial'")
             if self.partition_mode not in PARTITION_MODES:
                 raise ValueError(
                     f"partition_mode must be one of {PARTITION_MODES} or "
@@ -253,7 +264,8 @@ class EngineConfig:
                     "shard resident on its executor-pool slot at once "
                     "(halo rows copied on the device), 'serial' runs one "
                     "shard context at a time on the plan's device (the "
-                    "out-of-core mode)")
+                    "out-of-core mode), 'mesh' deals the shards over the "
+                    "distributed backend's ranks")
             if self.partitions is None or self.partitions == 1:
                 raise ValueError(
                     f"partition_mode={self.partition_mode!r} requires "
@@ -269,10 +281,12 @@ class EngineConfig:
         return resolve_device(self.device)
 
     def resolve_executor_devices(self) -> int:
-        """Executor pool width: 1 under the static schedule; else
+        """Executor pool width: 1 under the static schedule and on the
+        distributed backend (its mesh owns the devices); else
         ``n_executor_devices`` clamped to the CUDA device count (``None`` =
         all of them), or on the CPU that many slots (``None`` = 1)."""
-        if self.schedule != "dynamic":
+        if (self.schedule != "dynamic"
+                or self.resolve_backend() == "distributed"):
             return 1
         if self.resolve_device().type == "cuda":
             count = torch.cuda.device_count()
@@ -293,14 +307,17 @@ class EngineConfig:
     def resolve_partition_mode(self) -> Optional[str]:
         """Shard residency: ``None`` unpartitioned, the explicit mode when
         set, ``"serial"`` under ``spill`` (out-of-core staging promises
-        ONE resident shard), else ``"pool"``.  ``compile()`` normalizes
-        the config through this, so ``None`` and the mode it resolves to
-        share one plan-cache entry."""
+        ONE resident shard), else ``"mesh"`` on the distributed backend
+        (its mesh owns the devices) and ``"pool"`` elsewhere.
+        ``compile()`` normalizes the config through this, so ``None`` and
+        the mode it resolves to share one plan-cache entry."""
         if self.resolve_partitions() == 1:
             return None
         if self.partition_mode is not None:
             return self.partition_mode
-        return "serial" if self.resolve_spill() else "pool"
+        if self.resolve_spill():
+            return "serial"
+        return "mesh" if self.resolve_backend() == "distributed" else "pool"
 
     def resolve_chunk(self) -> int:
         """Streaming chunk size, rounded up to a whole number of batches."""

@@ -39,6 +39,12 @@ Backpressure (:func:`_throttle`): after each chunk a worker records a CUDA
 event and, once more than ``pipeline_depth`` chunks are in flight on its
 device, waits on the oldest — one window per worker.
 
+On the distributed backend the pool is one slot, the rank's device (the
+mesh owns the devices), and every retry happens inside the rank's share
+of a run, before the merge over the mesh: a retried chunk cannot put the
+ranks out of step, and a chunk that exhausts its retries fails the run
+on every rank (:func:`repro_torch.core.distributed.merge_over_mesh`).
+
 **Faults.**  Every dispatch has ``EngineConfig.max_attempts`` attempts.
 On the dynamic schedule a failed task is re-queued onto any surviving
 slot; a slot that raises :class:`~repro_torch.engine.faults.DeviceLostError`

@@ -40,7 +40,7 @@ __all__ = ["DeviceLostError", "ENV_VAR", "FaultPlan", "InjectedFault",
            "check_poisoned", "fault_plan_from_env", "is_poisoned", "poison",
            "resolve_faults", "unpoison"]
 
-_BACKENDS = ("tiles", "search")
+_BACKENDS = ("tiles", "search", "distributed")
 ENV_VAR = "REPRO_TORCH_FAULT_PLAN"
 
 
@@ -83,8 +83,10 @@ class FaultPlan:
             suppressed (a fresh device).
         device_loss_after: per-slot dispatch ordinal from which a
             ``device_loss`` slot is dead (0 = dead on arrival).
-        compile_failure: backends (``"tiles"``, ``"search"``) whose chunk
-            unit fails to build at plan construction.
+        compile_failure: backends (``"tiles"``, ``"search"``,
+            ``"distributed"``) whose chunk unit fails to build at plan
+            construction (the distributed backend has no rung: it
+            raises).
         runtime_failure: backends where **every** chunk dispatch raises.
         mutate_failure_calls: 0-based ordinals of a plan's
             ``apply_delta`` applications that raise mid-mutate.

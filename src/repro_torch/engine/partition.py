@@ -1,8 +1,7 @@
-"""Partitioned (sharded-CSR) execution: pool and serial shard residency,
-halo rows copied on the device, and out-of-core spill.
+"""Partitioned (sharded-CSR) execution: pool, serial and mesh shard
+residency, halo rows copied on the device, and out-of-core spill.
 
-Counterpart of :mod:`repro.engine.partition` without its ``"mesh"`` mode
-(which belongs to the distributed backend, not ported yet).  With
+Counterpart of :mod:`repro.engine.partition`.  With
 ``EngineConfig(partitions=P)`` a census run is P shard passes, each over
 a **local CSR** — the full rows of one contiguous vertex range plus its
 halo of remote rows (:mod:`repro_torch.core.partition` builds the
@@ -33,15 +32,25 @@ shard-local CSR.
   (:meth:`~repro_torch.engine.executor.Executor.run_pinned`).  ``spill``
   stages each shard's dyad list through a memory-mapped file, so with an
   mmap graph (:func:`repro_torch.core.graph.from_edges_mmap`) the host
-  holds one shard at a time.
+  holds one shard at a time.  On the distributed backend every rank
+  stages every shard and runs its round-robin share (``r::W``) of each
+  shard's dyads.
 
-The whole-graph once contribution is folded exactly once, every shard's
-chunks add into the run's int64 accumulator on the plan's device (exact,
-for any order, homing or re-homing), and ONE counted device→host copy
-ends the run.  Correctness rests on the ``GraphOp.delta_local`` contract
-(a dyad's contribution reads only ``{u, v} ∪ N(u) ∪ N(v)``, which the
-halo keeps as full rows); the arc flags of a local CSR are exact at every
-position of every owned and partner row, the only ones a kernel reads.
+``"mesh"`` (the distributed backend's default, and only there)
+  The shards are dealt over the mesh's ranks: rank ``r`` runs the
+  ``r``-th, ``(r + W)``-th, ... non-empty shard (the JAX package's waves
+  of W shards), each staged once on the rank's device from the host
+  like a serial shard and run through ``census_csr`` over its local CSR.
+
+The whole-graph once contribution is folded exactly once (on a
+distributed plan by rank 0), every shard's chunks add into the run's
+int64 accumulator on the plan's device (exact, for any order, homing or
+re-homing), and ONE counted device→host copy ends the run, on a
+distributed plan after the merge over the mesh.  Correctness rests on
+the ``GraphOp.delta_local`` contract (a dyad's contribution reads only
+``{u, v} ∪ N(u) ∪ N(v)``, which the halo keeps as full rows); the arc
+flags of a local CSR are exact at every position of every owned and
+partner row, the only ones a kernel reads.
 A delta corrects through :func:`subset_partitioned`: only the shards
 owning affected dyads run.
 
@@ -50,7 +59,8 @@ owning affected dyads run.
 per non-empty shard on a fault-free run), ``d2d_puts``,
 ``halo_host_puts`` (halo blocks of owners with no resident context),
 ``max_shard_bytes`` against :func:`full_context_bytes`,
-``max_stage_bytes`` against ``stream_bytes``, ``shard_times`` and
+``max_stage_bytes`` against ``stream_bytes``, ``shard_times`` (on a
+distributed plan only this rank's shards, ``device`` its rank) and
 ``shard_overlap`` (the share of busy wall time with two or more shards in
 flight), ``rehomes`` after a re-home and ``delta_shards`` after a delta.
 """
@@ -66,14 +76,16 @@ import weakref
 import numpy as np
 import torch
 
+from ..core.distributed import mesh_rank, mesh_size
 from ..core.graph import CSRGraph, GraphArrays, next_pow2
 from ..core.partition import (GraphPartition, _gather_rows, _host,
                               build_local_arrays, halo_by_owner, local_ptrs,
                               owned_idx, partition_graph, shard_dyads)
 from ..kernels.ops import MAX_PACKED_DEGREE, build_arc_flags_device
-from .backends import (_fold_once, _placer, _upload_dyads, _zeros,
-                       make_step, needs_flags, subset_pass, subset_schedule)
-from .executor import _acc_fetch, _on, same_device
+from .backends import (_collect, _fold_once, _placer, _upload_dyads,
+                       folds_once, make_step, needs_flags, subset_pass,
+                       subset_schedule)
+from .executor import _on, same_device
 
 __all__ = ["full_context_bytes", "plan_partition", "run_partitioned",
            "shard_context_bytes", "subset_partitioned"]
@@ -126,15 +138,27 @@ def _shard_arrays(plan, g: CSRGraph, shard, geom: _Geometry) -> GraphArrays:
                            wide=geom.wide, with_flags=needs_flags(plan))
 
 
-def _once_init(plan, g: CSRGraph) -> torch.Tensor:
-    """The run's accumulator on the plan's device holding the whole-graph
-    once contribution (folded once per run, never per shard: once kernels
-    read the whole graph, so a plan with one pays one full padded
-    upload here)."""
-    acc = _zeros(plan)
-    if plan._once is not None:
+def _once_into(plan, acc: torch.Tensor, g: CSRGraph) -> None:
+    """Fold the whole-graph once contribution into ``acc`` (once per run,
+    never per shard: once kernels read the whole graph, so a plan with
+    one pays one full padded upload here, on a distributed plan on rank 0
+    only)."""
+    if folds_once(plan):
         _fold_once(plan, acc, plan.padded_arrays(g), g.n)
-    return acc
+
+
+def _rank_split(plan, shard_lists):
+    """This rank's part of ``shard_lists`` on a distributed plan (the
+    list unchanged elsewhere): under ``"mesh"`` every W-th shard from the
+    rank's own, under ``"serial"`` every shard's dyads dealt round-robin
+    (``r::W``), shards left without dyads dropped."""
+    if plan.backend != "distributed":
+        return shard_lists
+    W, r = mesh_size(plan.mesh), mesh_rank(plan.mesh)
+    if plan.partition_mode == "mesh":
+        return shard_lists[r::W]
+    split = [(shard, u[r::W], v[r::W]) for shard, u, v in shard_lists]
+    return [(shard, u, v) for shard, u, v in split if len(u)]
 
 
 @contextlib.contextmanager
@@ -398,12 +422,15 @@ def _pool_pass(plan, g, part, geom, shard_lists, acc, pstats) -> None:
 
 def _serial_pass(plan, g, part, geom, shard_lists, acc, pstats) -> None:
     """Shards in order on the plan's device, each context built and placed
-    exactly ONCE (``h2d_puts``) and dropped before the next."""
+    exactly ONCE (``h2d_puts``) and dropped before the next.  On a
+    distributed plan, this rank's part of them (:func:`_rank_split`):
+    the ``"serial"`` and ``"mesh"`` modes there."""
     times = pstats.setdefault("shard_times", {})
     t_base = time.perf_counter()
     step = make_step(plan, g.n)
     dev = plan.executor.devices[0]
-    for shard, u, v in shard_lists:
+    label = mesh_rank(plan.mesh) if plan.backend == "distributed" else 0
+    for shard, u, v in _rank_split(plan, shard_lists):
         u, v, tasks = subset_schedule(plan, g, np.asarray(u, np.int32),
                                       np.asarray(v, np.int32))
 
@@ -418,7 +445,7 @@ def _serial_pass(plan, g, part, geom, shard_lists, acc, pstats) -> None:
         del ctx
         times[shard.index] = dict(start=start,
                                   end=time.perf_counter() - t_base,
-                                  tasks=len(tasks), device=0)
+                                  tasks=len(tasks), device=label)
 
 
 # ---------------------------------------------------------------------------
@@ -429,7 +456,8 @@ def run_partitioned(plan, g: CSRGraph) -> np.ndarray:
     """The partitioned full pass of ``g`` (the plan's run on ``partitions >
     1``): the plan's ``partition_mode``, the executor's retry, quarantine
     and fallback inside it, every shard's bins added into one
-    accumulator, ONE counted device→host copy.  Records
+    accumulator (on a distributed plan, this rank's shards, merged over
+    the mesh), ONE counted device→host copy.  Records
     ``plan.stats["partition"]``; returns the raw int64 bins."""
     if g.n_dyads == 0:  # the full-run convention: zeros, no copy
         return np.zeros(plan.layout.total_bins, dtype=np.int64)
@@ -444,26 +472,30 @@ def run_partitioned(plan, g: CSRGraph) -> np.ndarray:
                   max_stage_bytes=0,
                   max_shard_bytes=shard_context_bytes(plan, geom),
                   stream_bytes=int(2 * 4 * g.n_dyads))
-    acc = _once_init(plan, g)
-    with _spill_scratch(spill) as scratch:
-        shard_lists = []
-        for shard in part.shards:
-            if shard.n_dyads == 0:
-                continue
-            u, v = shard_dyads(g, shard.lo, shard.hi)
-            pstats["max_stage_bytes"] = max(
-                pstats["max_stage_bytes"],
-                int(u.nbytes + v.nbytes + 2 * 4 * geom.pad))
-            if scratch is not None:
-                u, v = _stage_spill(u, v, scratch, f"shard{shard.index}")
-            shard_lists.append((shard, u, v))
-        run = _pool_pass if mode == "pool" else _serial_pass
-        if shard_lists:
-            run(plan, g, part, geom, shard_lists, acc, pstats)
+
+    def fill(acc):
+        _once_into(plan, acc, g)
+        with _spill_scratch(spill) as scratch:
+            shard_lists = []
+            for shard in part.shards:
+                if shard.n_dyads == 0:
+                    continue
+                u, v = shard_dyads(g, shard.lo, shard.hi)
+                pstats["max_stage_bytes"] = max(
+                    pstats["max_stage_bytes"],
+                    int(u.nbytes + v.nbytes + 2 * 4 * geom.pad))
+                if scratch is not None:
+                    u, v = _stage_spill(u, v, scratch, f"shard{shard.index}")
+                shard_lists.append((shard, u, v))
+            run = _pool_pass if mode == "pool" else _serial_pass
+            if shard_lists:
+                run(plan, g, part, geom, shard_lists, acc, pstats)
+
+    raw = _collect(plan, fill)
     pstats["shard_overlap"] = _overlap_fraction(pstats.get("shard_times",
                                                            {}))
     plan.stats["partition"] = pstats
-    return _acc_fetch(plan, acc)
+    return raw
 
 
 def subset_partitioned(plan, g: CSRGraph, u: np.ndarray, v: np.ndarray,
@@ -472,13 +504,14 @@ def subset_partitioned(plan, g: CSRGraph, u: np.ndarray, v: np.ndarray,
     add ``g``'s once contributions and the bins of its dyads ``(u, v)``
     into ``acc``.  The dyads group by owner shard (``searchsorted`` over
     the cuts) and only the owning shards build a local CSR and run —
-    together through the pool under ``"pool"``, one at a time otherwise.
+    together through the pool under ``"pool"``, one at a time otherwise
+    (on a distributed plan, this rank's part of them:
+    :func:`_rank_split`).
     ``stats["partition"]["delta_shards"]`` records how many shards the
     pass touched."""
     part = plan_partition(plan, g)
     geom = _Geometry(plan, g, part)
-    if plan._once is not None:
-        _fold_once(plan, acc, plan.padded_arrays(g), g.n)
+    _once_into(plan, acc, g)
     u, v = np.asarray(u, np.int32), np.asarray(v, np.int32)
     owner = np.searchsorted(part.cuts, u.astype(np.int64), side="right") - 1
     shard_lists = [(shard, u[owner == shard.index], v[owner == shard.index])
@@ -489,7 +522,7 @@ def subset_partitioned(plan, g: CSRGraph, u: np.ndarray, v: np.ndarray,
         _pool_pass(plan, g, part, geom, shard_lists, acc,
                    dict(h2d_puts=0, d2d_puts=0))
     else:
-        for shard, su_, sv_ in shard_lists:
+        for shard, su_, sv_ in _rank_split(plan, shard_lists):
             subset_pass(plan, g, su_, sv_, acc,
                         arrays=_shard_arrays(plan, g, shard, geom))
     pstats = plan.stats.setdefault("partition", dict(partitions=part.parts))

@@ -37,10 +37,19 @@ raw bins map back through ``OpLayout.unpermute``: raw bins are always in
 original vertex ids.
 
 **Partitions.**  With ``config.partitions > 1`` a run is the partitioned
-pass of :mod:`repro_torch.engine.partition` (pool or serial shard
+pass of :mod:`repro_torch.engine.partition` (pool, serial or mesh shard
 residency), inside the same ladder and after the relabeling, so the cuts
 fall on the relabeled ids.  Such a plan refuses an op whose
 ``delta_local`` is ``False``, and its ``run_batch`` runs member by member.
+
+**Distributed plans.**  ``compile(..., mesh=)`` on the ``"distributed"``
+backend binds the plan to a ``torch.distributed`` device mesh (part of
+the cache key): every run, batch and delta is this rank's share, merged
+over the mesh before its one copy (:mod:`repro_torch.core.distributed`),
+so every rank must make the same calls in the same order.  Without a
+mesh the plan takes a 1-D mesh over the world when the default process
+group is initialized, else a one-rank mesh on the plan's device.  The
+ladder has no rung for this backend: a failure raises on every rank.
 """
 from __future__ import annotations
 
@@ -54,6 +63,7 @@ import numpy as np
 import torch
 
 from ..core.census import CensusResult
+from ..core.distributed import default_mesh
 from ..core.graph import CSRGraph, GraphArrays, next_pow2, tensor_arrays
 from ..core.reorder import compute_permutation, permute_graph
 from ..kernels.ops import (MAX_PACKED_DEGREE, build_arc_flags_device,
@@ -112,13 +122,17 @@ class Plan:
     (``{op_name: result}``) or :meth:`run_raw` (raw int64 bins)."""
 
     def __init__(self, meta: GraphMeta, ops, config: EngineConfig,
-                 backend: str, device: torch.device):
+                 backend: str, device: torch.device, mesh=None):
         self.meta = meta
         self.ops = tuple(ops)
         self.op_names = tuple(op.name for op in self.ops)
         self.config = config
         self.backend = backend
         self.device = device
+        if backend == "distributed" and mesh is None:
+            raise ValueError("the distributed backend needs a mesh "
+                             "(compile() supplies the default one)")
+        self.mesh = mesh
         self.layout = OpLayout(self.ops, meta, config)
         # streaming chunk, capped by the dyad-count bucket so small graphs
         # do not pad up to a full default chunk
@@ -149,6 +163,18 @@ class Plan:
                     f"{nonlocal_ops} opt out — their kernels may read "
                     "rows outside a shard's halo; run them unpartitioned "
                     "(partitions=1)")
+            if self.partition_mode == "mesh" and backend != "distributed":
+                raise ValueError(
+                    f"partition_mode='mesh' requires the distributed "
+                    f"backend (got backend={backend!r}): the mesh mode "
+                    "deals the shards over the ranks of a device mesh — "
+                    "use partition_mode='pool' or 'serial' on this backend")
+            if self.partition_mode == "pool" and backend == "distributed":
+                raise ValueError(
+                    "partition_mode='pool' is not available on the "
+                    "distributed backend: its mesh owns the devices (the "
+                    "executor pool is pinned to one slot) — use "
+                    "partition_mode='mesh' (the default there) or 'serial'")
         self.executor = Executor(
             config, self.stats,
             pool_devices(device, config.resolve_executor_devices()),
@@ -156,6 +182,9 @@ class Plan:
         self._task_memo: dict = {}
         self._reorder_memo: dict = {}
         self._partition_memo: dict = {}
+        # distributed: the packing's load summary of the latest run
+        # (backends.TaskStats; never the task arrays)
+        self.last_task_stats = None
         self._once = self.layout.once_kernel()
         fplan = resolve_faults(config.fault_plan)
         try:
@@ -164,14 +193,17 @@ class Plan:
             self._fn = self._build_fn(backend)
         except InjectedFault as e:
             # the chunk units are torch closures, so the compile rung
-            # sees only the injected failure
+            # sees only the injected failure; a distributed plan has no
+            # rung (its ranks would leave the SPMD schedule apart)
             if backend != "tiles" or not config.backend_fallback:
                 raise
             self._demote("search", stage="compile", reason=repr(e))
 
     def _build_fn(self, backend: str):
-        """``backend``'s chunk unit (the ladder re-enters this)."""
+        """``backend``'s chunk unit (the ladder re-enters this); a
+        distributed rank runs the tiles unit."""
         make = {"tiles": backends.make_tiles_chunk_fn,
+                "distributed": backends.make_tiles_chunk_fn,
                 "search": backends.make_search_chunk_fn}[backend]
         return make(self.layout)
 
@@ -419,14 +451,18 @@ def _evict_to_capacity() -> None:
 
 
 def compile(graph_meta, ops=("triad_census",),
-            config: Optional[EngineConfig] = None) -> Plan:
+            config: Optional[EngineConfig] = None, *, mesh=None) -> Plan:
     """Build (or fetch from cache) the plan for this graph shape + ops.
 
     ``graph_meta`` is a :class:`CSRGraph` or a :class:`GraphMeta`.  The
     config's backend, device, pool width and partition fields are resolved
     first (``"auto"`` → ``"tiles"``, ``None`` → ``"cuda"``, which raises
     without CUDA; ``partition_mode=None`` → the mode it resolves to), so
-    equivalent configs share one cache entry.
+    equivalent configs share one cache entry.  ``mesh`` (a
+    ``torch.distributed.device_mesh.DeviceMesh``) binds a distributed
+    plan to its ranks and is part of the key; ``None`` there is the
+    default mesh (:func:`~repro_torch.core.distributed.default_mesh`),
+    and other backends ignore it.
     """
     config = config or EngineConfig()
     op_objs = resolve_ops(ops)
@@ -440,24 +476,30 @@ def compile(graph_meta, ops=("triad_census",),
         partitions=config.resolve_partitions(),
         spill=config.resolve_spill(),
         partition_mode=config.resolve_partition_mode())
-    key = (meta, op_objs, config)
+    if backend != "distributed":
+        mesh = None
+    elif mesh is None:
+        mesh = default_mesh(device)
+    key = (meta, op_objs, config, mesh)
     plan = _PLAN_CACHE.get(key)
     if plan is not None:
         _CACHE_STATS["hits"] += 1
         _PLAN_CACHE.move_to_end(key)
         return plan
     _CACHE_STATS["misses"] += 1
-    plan = Plan(meta, op_objs, config, backend, device)
+    plan = Plan(meta, op_objs, config, backend, device, mesh)
     _PLAN_CACHE[key] = plan
     _evict_to_capacity()
     return plan
 
 
-def compile_census(graph_meta, config: Optional[EngineConfig] = None
-                   ) -> CensusPlan:
+def compile_census(graph_meta, config: Optional[EngineConfig] = None, *,
+                   mesh=None) -> CensusPlan:
     """Census-only front door: the census view of
-    ``compile(graph_meta, ("triad_census",), config)`` (same cache)."""
-    return compile(graph_meta, ("triad_census",), config).census_view()
+    ``compile(graph_meta, ("triad_census",), config, mesh=mesh)`` (same
+    cache)."""
+    return compile(graph_meta, ("triad_census",), config,
+                   mesh=mesh).census_view()
 
 
 def clear_plan_cache() -> None:
@@ -485,7 +527,8 @@ def plan_cache_stats() -> dict:
     unpartitioned; ``partition_mode``, None unpartitioned;
     ``partition_memo``, the live layout-memo entries) and, after a
     partitioned run, ``partition``: that run's layout and staging record
-    (see :func:`repro_torch.engine.partition.run_partitioned`)."""
+    (see :func:`repro_torch.engine.partition.run_partitioned`); ``mesh``,
+    the shape of a distributed plan's mesh (None on other backends)."""
     entries = [dict(meta=dataclasses.asdict(p.meta), backend=p.backend,
                     requested_backend=p.requested_backend,
                     degradation=[dict(d) for d in p.degradation],
@@ -497,6 +540,8 @@ def plan_cache_stats() -> dict:
                     partitions=p.partitions,
                     partition_mode=p.partition_mode,
                     partition_memo=len(p._partition_memo),
+                    mesh=(None if p.mesh is None
+                          else tuple(int(x) for x in p.mesh.shape)),
                     **{**p.stats,
                        "device_chunks": dict(p.stats["device_chunks"]),
                        "faults": dict(p.stats["faults"]),

@@ -245,10 +245,19 @@ class CensusService:
     a multi-analytic fleet over the same graphs batch separately (they
     run different fused plans), but everything inside a group rides one
     batch.
+
+    ``mesh`` is forwarded to every ``compile`` for the distributed
+    backend (``None``: the engine's default mesh).  A distributed service
+    is SPMD, one instance per rank: every rank must submit the same
+    requests, subscribe and mutate the same sessions and flush, all in
+    the same order, since each batch, run and delta ends in a merge over
+    the mesh that every rank joins.
     """
 
-    def __init__(self, config: Optional[ServiceConfig] = None):
+    def __init__(self, config: Optional[ServiceConfig] = None, *,
+                 mesh=None):
         self.config = config or ServiceConfig()
+        self.mesh = mesh
         # (meta, ops) -> [(rid, graph)] / oldest rid
         self._pending: Dict[tuple, list] = {}
         self._first_seq: Dict[tuple, int] = {}
@@ -412,7 +421,7 @@ class CensusService:
                 f"session limit reached (max_sessions="
                 f"{self.config.max_sessions}); unsubscribe() a session "
                 "before subscribing another graph")
-        plan = compile(graph, ops_t, self.config.census)
+        plan = compile(graph, ops_t, self.config.census, mesh=self.mesh)
         sid = self._session_seq
         self._session_seq += 1
         self._sessions[sid] = _Session(graph=graph, ops=ops_t, plan=plan,
@@ -458,7 +467,8 @@ class CensusService:
                 # a failure inside the recompile reseed must leave the
                 # session on its old (graph, raw, plan) triple.
                 g_new = apply_delta_csr(s.graph, delta)
-                plan_new = compile(g_new, s.ops, self.config.census)
+                plan_new = compile(g_new, s.ops, self.config.census,
+                                   mesh=self.mesh)
                 raw_new = plan_new.run_raw(g_new)
                 s.plan, s.graph, s.raw = plan_new, g_new, raw_new
                 s.recompiles += 1
@@ -497,7 +507,8 @@ class CensusService:
         self._expire_overdue()
         keys = list(self._pending)
         if len(keys) > 1 and self.config.census.schedule == "dynamic":
-            plans = {key: compile(key[0], key[1], self.config.census)
+            plans = {key: compile(key[0], key[1], self.config.census,
+                                  mesh=self.mesh)
                      for key in keys}
             jobs = []
             for key in keys:
@@ -551,7 +562,7 @@ class CensusService:
         meta, ops_t = key
         group = self._pending.pop(key)
         self._first_seq.pop(key)
-        plan = compile(meta, ops_t, self.config.census)
+        plan = compile(meta, ops_t, self.config.census, mesh=self.mesh)
         try:
             out = self._execute_group(plan, group)
         except BaseException as e:

@@ -544,9 +544,12 @@ def test_partition_config_validation_messages(kwargs, match):
         JConfig(**kwargs)
 
 
-def test_partition_mesh_mode_is_refused_until_the_distributed_backend():
-    with pytest.raises(ValueError, match="mesh.*distributed backend"):
-        EngineConfig(partitions=2, partition_mode="mesh")
+@pytest.mark.parametrize("backend", ("tiles", "search"))
+def test_partition_mesh_mode_is_refused_off_the_distributed_backend(backend):
+    g = port_graph(*_arcs(33, n=16, m=40))
+    with pytest.raises(ValueError, match="mesh.*requires the distributed"):
+        compile(g, ("triad_census",), cfg(backend, partitions=2,
+                                          partition_mode="mesh"))
 
 
 def test_partition_mode_cache_key_normalization():
