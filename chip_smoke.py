@@ -1716,21 +1716,27 @@ def dispatch_s(ps):
     return sum(t["end"] - t["start"] for t in ps["shard_times"].values())
 
 
-def check_partition_run(plan, raw, want, launches, label):
-    """A partitioned run: bins equal to ``want``, one copy, launches equal
-    to the shard tasks and the chunks, one staging per non-empty shard,
-    no copy between devices on one card.  Returns the shard tasks."""
+def check_partition_run(plan, raw, want, launches, label, shards=None):
+    """A partitioned run: bins equal to ``want``, launches equal to the
+    shard tasks, one staging per shard it had to run (``shards``, the
+    indices; by default every non-empty shard), no copy between devices
+    on one card.  Returns the shard tasks."""
     import numpy as np
 
     ps = plan.stats["partition"]
     tasks = sum(t["tasks"] for t in ps["shard_times"].values())
-    nonempty = sum(1 for d in ps["shard_dyads"] if d)
+    if shards is None:
+        shards = [i for i, d in enumerate(ps["shard_dyads"]) if d]
+    else:
+        check(sorted(ps["shard_times"]) == list(shards),
+              f"{label}: ran shards {sorted(ps['shard_times'])}, dealt "
+              f"{list(shards)}")
     check(np.array_equal(raw, want),
           f"{label}: bins {raw.tolist()} != unpartitioned {want.tolist()}")
-    check(launches == tasks > 0 and ps["h2d_puts"] == nonempty
+    check(launches == tasks > 0 and ps["h2d_puts"] == len(shards)
           and ps["d2d_puts"] == 0,
           f"{label}: {launches} launches, {tasks} shard tasks, "
-          f"{ps['h2d_puts']} stagings of {nonempty} shards, "
+          f"{ps['h2d_puts']} stagings of {len(shards)} shards, "
           f"{ps['d2d_puts']} device copies")
     return tasks
 
@@ -1990,35 +1996,47 @@ DIST_FAULT = dict(seed=16, chunk_failure_rate=0.2, fail_attempts=1)
 DIST_REPS = 3
 
 
-def counts_now(plan):
-    """This rank's census_csr launches, all-reduces, and ``plan``'s copies
-    and chunks so far."""
+def stats_now(plan):
+    """This rank's all-reduces, and ``plan``'s copies and chunks so far."""
     from repro_torch.core.distributed import merge_over_mesh
-    from repro_torch.kernels.triad_census import census_csr
 
-    return dict(launches=census_csr.launches, syncs=plan.stats["host_syncs"],
+    return dict(syncs=plan.stats["host_syncs"],
                 merges=merge_over_mesh.collectives,
                 chunks=plan.stats["chunks"])
 
 
-def check_rank_run(plan, raw, want, before, label, after=None):
-    """One distributed run on this rank: bins equal ``want``, one merge,
-    one copy, and one census_csr launch per chunk the rank dispatched
-    (``before`` and ``after``, by default now: :func:`counts_now` around
-    the run).  Returns the rank's launches."""
+def check_rank_run(plan, raw, want, launches, before, label, after=None):
+    """One distributed run on this rank: bins equal ``want``, one merge and
+    one copy (``before`` and ``after``, by default now: :func:`stats_now`
+    around the run), and ``launches`` — census_csr's count, set to 0 just
+    before the run and read just after — one per chunk the rank
+    dispatched."""
     import numpy as np
 
-    after = after or counts_now(plan)
-    launches, merges, syncs, chunks = (
-        after[k] - before[k] for k in ("launches", "merges", "syncs",
-                                       "chunks"))
+    after = after or stats_now(plan)
+    merges, syncs, chunks = (after[k] - before[k]
+                             for k in ("merges", "syncs", "chunks"))
     check(np.array_equal(raw, want), f"{label}: distributed bins "
           f"{np.asarray(raw).tolist()} != {np.asarray(want).tolist()}")
     check(merges == 1 and syncs == 1,
           f"{label}: {merges} all-reduces and {syncs} host copies")
     check(launches == chunks > 0,
           f"{label}: {launches} census_csr launches for {chunks} chunks")
-    return launches
+
+
+def rank_shards(plan, mesh):
+    """The shards this rank of ``mesh`` has to run in ``plan``'s last
+    partitioned run, from the shards' dyad counts: under ``"mesh"`` every
+    W-th non-empty shard from the rank's own, under ``"serial"`` every
+    shard of more than ``r`` dyads (a non-empty share ``r::W``)."""
+    from repro_torch.core.distributed import mesh_rank, mesh_size
+
+    ps = plan.stats["partition"]
+    W, r = mesh_size(mesh), mesh_rank(mesh)
+    nonempty = [i for i, d in enumerate(ps["shard_dyads"]) if d]
+    if ps["mode"] == "mesh":
+        return nonempty[r::W]
+    return [i for i in nonempty if ps["shard_dyads"][i] > r]
 
 
 def rank_census_phase(torch, dev, mesh, g, ops, rates, label):
@@ -2044,15 +2062,17 @@ def rank_census_phase(torch, dev, mesh, g, ops, rates, label):
     want = launches = None
     for _ in range(1 + DIST_REPS):  # cold, then warm
         for name, p in (("tiles", tiles), ("distributed", plan)):
-            before = counts_now(p)
+            before = stats_now(p)
             dist.barrier()
+            census_csr.launches = 0
             t0 = time.perf_counter()
             raw = p.run_raw(g)
             times[name].append(time.perf_counter() - t0)
             if want is None:
                 want = raw
             if name == "distributed":
-                launches = check_rank_run(p, raw, want, before, label)
+                launches = census_csr.launches
+                check_rank_run(p, raw, want, launches, before, label)
     u, v, tasks, stats = rank_share(plan, g)
     check(launches == len(tasks), f"{label}: {launches} launches for "
                                   f"{len(tasks)} rank tasks")
@@ -2084,12 +2104,14 @@ def rank_census_phase(torch, dev, mesh, g, ops, rates, label):
 def rank_partition_phase(torch, dev, mesh, g, raw_fused, label):
     """Slashdot in ``PARTITIONS`` shards on the distributed backend, the
     four ops, ``"mesh"`` then ``"serial"``: bins equal to the
-    unpartitioned run, one merge and one copy, a launch per chunk the
-    rank dispatched; cold and warm.  Returns the launches per mode."""
+    unpartitioned run, one merge and one copy, the shards dealt to the
+    rank (:func:`rank_shards`) each staged once, a launch per task of
+    them; cold and warm.  Returns the launches per mode."""
     import torch.distributed as dist
 
     from repro_torch.core.distributed import mesh_rank
     from repro_torch.engine import EngineConfig, compile
+    from repro_torch.kernels.triad_census import census_csr
 
     out = {}
     for mode in ("mesh", "serial"):
@@ -2098,13 +2120,18 @@ def rank_partition_phase(torch, dev, mesh, g, raw_fused, label):
             partition_mode=mode), mesh=mesh)
         walls = []
         for _ in range(1 + DIST_REPS):
-            before = counts_now(plan)
+            before = stats_now(plan)
             dist.barrier()
+            census_csr.launches = 0
             t0 = time.perf_counter()
             raw = plan.run_raw(g)
             walls.append(time.perf_counter() - t0)
-            out[mode] = check_rank_run(plan, raw, raw_fused, before,
-                                       f"{label}_{mode}")
+            out[mode] = census_csr.launches
+            check_rank_run(plan, raw, raw_fused, out[mode], before,
+                           f"{label}_{mode}")
+            check_partition_run(plan, raw, raw_fused, out[mode],
+                                f"{label}_{mode}",
+                                shards=rank_shards(plan, mesh))
         ps = plan.stats["partition"]
         emit("distributed_partition", graph=label, mode=mode,
              partitions=PARTITIONS, rank=mesh_rank(mesh),
@@ -2117,33 +2144,46 @@ def rank_partition_phase(torch, dev, mesh, g, raw_fused, label):
 
 def rank_delta_fault_phase(torch, dev, mesh, g, rank, label):
     """A k = 64 delta on the distributed plan (four ops), equal to the
-    full recompute on the card, one merge and one copy; then chunk faults
+    full recompute on the card, one merge and one copy, a launch per task
+    of the rank's share ``r::W`` of the affected dyads; then chunk faults
     injected on rank 1 only (``DIST_FAULT``), retried to the clean bins,
-    ``retries`` equal to the rank's selected chunks.  Returns the
-    launches of each."""
+    ``retries`` equal to the rank's selected chunks, a launch per task of
+    the rank's row.  Returns the launches of each."""
     import numpy as np
     import torch.distributed as dist
 
+    from repro_torch.core.delta import affected_dyads
+    from repro_torch.core.distributed import mesh_size
     from repro_torch.engine import (EngineConfig, FaultPlan,
                                     clear_plan_cache, compile)
-    from repro_torch.engine.backends import rank_share
+    from repro_torch.engine.backends import rank_share, subset_schedule
+    from repro_torch.kernels.triad_census import census_csr
 
     clear_plan_cache()
     plan = compile(g, FUSED_OPS, EngineConfig(
         backend="distributed", device=dev, delta_threshold=1.0), mesh=mesh)
     raw = plan.run_raw(g)
     delta = footprint_delta(g, 64, np.random.default_rng(64))
-    before = counts_now(plan)
+    before = stats_now(plan)
     dist.barrier()
+    census_csr.launches = 0
     t0 = time.perf_counter()
     res = plan.apply_delta(g, delta, raw)
     delta_s = time.perf_counter() - t0
-    after = counts_now(plan)
+    delta_launches = census_csr.launches
+    after = stats_now(plan)
     check(res.mode == "delta", f"{label}: delta ran {res.mode}")
     full = compile(res.graph, FUSED_OPS, EngineConfig(
         backend="tiles", device=dev)).run_raw(res.graph)
-    delta_launches = check_rank_run(plan, res.raw, full, before,
-                                    f"{label}_delta", after)
+    check_rank_run(plan, res.raw, full, delta_launches, before,
+                   f"{label}_delta", after)
+    W = mesh_size(mesh)
+    share = sum(len(subset_schedule(plan, gg, u[rank::W], v[rank::W])[2])
+                for gg, (u, v) in ((g, affected_dyads(g, delta)),
+                                   (res.graph,
+                                    affected_dyads(res.graph, delta))))
+    check(delta_launches == share > 0, f"{label}_delta: {delta_launches} "
+          f"launches for {share} tasks of the rank's affected dyads")
     emit("distributed_delta", graph=label, k=64, rank=rank,
          launches=delta_launches, seconds=delta_s, equal_to_full=True)
     faults_clean(f"{label}_delta")
@@ -2151,16 +2191,21 @@ def rank_delta_fault_phase(torch, dev, mesh, g, rank, label):
     fault = FaultPlan(**DIST_FAULT) if rank == 1 else FaultPlan()
     plan = compile(g, FUSED_OPS, EngineConfig(
         backend="distributed", device=dev, fault_plan=fault), mesh=mesh)
-    before = counts_now(plan)
+    before = stats_now(plan)
+    dist.barrier()
+    census_csr.launches = 0
     raw_f = plan.run_raw(g)
+    fault_launches = census_csr.launches
     tasks = rank_share(plan, g)[2]
     selected = sum(fault.chunk_fails(t.start, 1) for t in tasks)
     check(plan.stats["faults"]["retries"] == selected
           and (rank != 1 or selected > 0),
           f"{label}: {plan.stats['faults']} for {selected} selected chunks")
     # a failed attempt launches nothing: the fault fires before dispatch
-    fault_launches = check_rank_run(plan, raw_f, raw, before,
-                                    f"{label}_faults")
+    check_rank_run(plan, raw_f, raw, fault_launches, before,
+                   f"{label}_faults")
+    check(fault_launches == len(tasks), f"{label}_faults: {fault_launches} "
+          f"launches for {len(tasks)} rank tasks")
     emit("distributed_faults", graph=label, rank=rank, selected=selected,
          retries=plan.stats["faults"]["retries"], launches=fault_launches,
          equal_to_clean=True)

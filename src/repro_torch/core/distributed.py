@@ -10,13 +10,15 @@ same order.
   * every rank takes one **static task row** from
     :func:`repro_torch.core.balance.pack_tasks` (the paper's task queue),
     row ``r`` for the rank whose flattened mesh coordinate is ``r``; the
-    packing is deterministic, so the ranks agree without talking;
+    packing is deterministic, so the ranks agree without talking (a
+    list of dyads or shards is dealt round-robin instead, :func:`deal`);
   * the graph is replicated on every rank (the paper's shared memory);
   * each rank adds its tasks' bins into a private int64 accumulator (the
     paper's decoupled per-thread census) and :func:`merge_over_mesh`
     performs the end-of-run merge: one ``all_reduce(SUM)`` per mesh
     dimension, the only communication of a run, then one copy to the
-    host.
+    host.  :func:`make_census_fn_for_mesh` is that schedule, defined
+    once: the engine's distributed plans hold one.
 
 A rank whose own work fails still joins the merge, with an error flag
 that rides in the same all-reduce ahead of the bins, so a rank-local
@@ -45,7 +47,7 @@ import warnings
 import numpy as np
 import torch
 
-__all__ = ["LocalMesh", "RemoteRankError", "default_mesh",
+__all__ = ["LocalMesh", "RemoteRankError", "deal", "default_mesh",
            "distributed_triad_census", "make_census_fn_for_mesh",
            "make_distributed_census_fn", "merge_over_mesh", "mesh_rank",
            "mesh_size"]
@@ -105,18 +107,30 @@ def default_mesh(device: torch.device):
 
 
 def mesh_size(mesh) -> int:
-    """The number of ranks of ``mesh``: W."""
-    return int(math.prod(tuple(mesh.shape)))
+    """The number of ranks of ``mesh``: W (1 for ``None``, no mesh)."""
+    return 1 if mesh is None else int(math.prod(tuple(mesh.shape)))
 
 
 def mesh_rank(mesh) -> int:
     """This rank's shard index: its flattened (row-major) coordinate in
-    ``mesh``."""
+    ``mesh`` (0 for ``None``, no mesh)."""
+    if mesh is None:
+        return 0
     coord = mesh.get_coordinate()
     if coord is None:
         raise ValueError("this process is not a rank of the mesh")
     return int(np.ravel_multi_index(tuple(int(c) for c in coord),
                                     tuple(mesh.shape)))
+
+
+def deal(mesh, seq):
+    """This rank's round-robin share of ``seq``: items ``r, r + W, ...``
+    for rank ``r`` of W (the JAX package deals item ``i`` to rank ``i %
+    W``); all of ``seq`` for ``None``, no mesh.  The one place the work
+    of a pass is dealt to the ranks."""
+    if mesh is None:
+        return seq
+    return seq[mesh_rank(mesh)::mesh_size(mesh)]
 
 
 def merge_over_mesh(mesh, acc: torch.Tensor, fill=None, *,
@@ -165,22 +179,20 @@ def merge_over_mesh(mesh, acc: torch.Tensor, fill=None, *,
 merge_over_mesh.collectives = 0
 
 
-def make_census_fn_for_mesh(mesh, *, chunk_fn, n_bins: int):
-    """The SPMD schedule: a function ``census(ctx, tasks, device)`` that
-    sweeps this rank's tasks through ``chunk_fn(ctx, task) -> (n_bins,)``
-    int64 contributions, in order, into a private int64 accumulator on
-    ``device``, then merges every rank's accumulator
-    (:func:`merge_over_mesh`) and returns the ``(n_bins,)`` int64 bins.
-    The engine's distributed backend drives its executor (retry and fault
-    injection per chunk) inside the same merge."""
+def make_census_fn_for_mesh(mesh, *, n_bins: int, device, stats=None):
+    """The SPMD schedule, its one definition: every run, batch and delta
+    of the engine's distributed backend, partitioned or not, and the
+    legacy :func:`make_distributed_census_fn` go through it.  Returns
+    ``census(fill, *shape)``: a fresh private int64 accumulator of shape
+    ``(*shape, n_bins)`` on ``device``, ``fill(acc)`` sweeping this rank's
+    share of the work into it — its task row through the chunk unit, on
+    the engine's executor, so chunk retry and fault injection stay ahead
+    of the merge — then :func:`merge_over_mesh` (``stats`` counts its
+    host copy).  Returns the merged bins as int64 numpy."""
 
-    def census(ctx, tasks, device) -> np.ndarray:
-        def fill(acc):
-            for t in tasks:
-                acc.add_(chunk_fn(ctx, t))
-
-        acc = torch.zeros(n_bins, dtype=torch.int64, device=device)
-        return merge_over_mesh(mesh, acc, fill)
+    def census(fill, *shape) -> np.ndarray:
+        acc = torch.zeros(*shape, n_bins, dtype=torch.int64, device=device)
+        return merge_over_mesh(mesh, acc, fill, stats=stats)
 
     return census
 
@@ -190,51 +202,30 @@ def make_distributed_census_fn(g, mesh, *, batch: int = 256,
     """Deprecated: the distributed census of graphs shaped like ``g``;
     returns ``census(arrays, n, tasks_u, tasks_v, valid) -> (16,)``
     int64, where ``tasks_*`` are ``(W, L)`` task arrays
-    (:func:`~repro_torch.core.balance.pack_tasks`) and this rank sweeps row
-    :func:`mesh_rank` in ``batch``-dyad chunks through the CSR census
-    kernel ``census_csr`` (``K`` bounds every row: ``g.max_deg`` by
-    default).  ``arrays`` are the graph's tensors; the arc flags and range
-    counts the kernel reads are built from them when absent.  Null triads
+    (:func:`~repro_torch.core.balance.pack_tasks`) and this rank runs
+    row :func:`mesh_rank` of them, without its padding slots, as a subset
+    pass of a distributed census plan compiled for ``g`` and ``mesh``
+    (``K``: its tile width) over ``arrays`` — the graph's tensors — and
+    merges it over the mesh.  ``n`` is taken from ``g``.  Null triads
     (type 003) are not counted."""
-    from ..kernels.ops import MAX_PACKED_DEGREE, build_arc_flags_device
-    from ..kernels.triad_census import SENTINEL, census_csr
+    from ..engine import EngineConfig, compile
+    from ..engine.backends import run_rank_row
 
     warnings.warn(
         "repro_torch.core.distributed.make_distributed_census_fn is "
         "deprecated; use repro_torch.engine.compile_census with "
         "CensusConfig(backend='distributed')",
         DeprecationWarning, stacklevel=2)
-    K = K or max(1, g.max_deg)
-    block = min(batch, 32)
-    wide = g.max_deg > MAX_PACKED_DEGREE
-
-    def chunk_fn(ctx, task):
-        arrays, n, u, v = ctx
-        cu, cv = u[task[0]: task[1]], v[task[0]: task[1]]
-        pad = (-cu.shape[0]) % block
-        if pad:
-            fill = torch.full((pad,), SENTINEL, dtype=torch.int32,
-                              device=cu.device)
-            cu, cv = torch.cat([cu, fill]), torch.cat([cv, fill])
-        return census_csr(cu, cv, n, arrays, k=K, block=block).sum(
-            0, dtype=torch.int64)
-
-    sweep = make_census_fn_for_mesh(mesh, chunk_fn=chunk_fn, n_bins=16)
+    plan = compile(g, ("triad_census",), EngineConfig(
+        backend="distributed", batch=batch, k=K, device=str(g.device)),
+        mesh=mesh)
 
     def census(arrays, n, tasks_u, tasks_v, valid) -> np.ndarray:
         r = mesh_rank(mesh)
-        dev = arrays.nbr_ptr.device
-        if arrays.nbr_flag is None or arrays.nbr_cnt is None:
-            flags, counts = build_arc_flags_device(
-                arrays.out_ptr, arrays.out_idx, arrays.nbr_ptr,
-                arrays.nbr_idx, wide=wide)
-            arrays = arrays._replace(nbr_flag=flags, nbr_cnt=counts)
         keep = np.asarray(valid)[r]
-        u, v = (torch.from_numpy(np.ascontiguousarray(
-            np.asarray(t)[r][keep], dtype=np.int32)).to(dev)
-            for t in (tasks_u, tasks_v))
-        spans = [(s, min(s + batch, len(u))) for s in range(0, len(u), batch)]
-        return sweep((arrays, int(n), u, v), spans, dev)
+        u, v = (np.ascontiguousarray(np.asarray(t)[r][keep], dtype=np.int32)
+                for t in (tasks_u, tasks_v))
+        return run_rank_row(plan, g, arrays, u, v)
 
     return census
 

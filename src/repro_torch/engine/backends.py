@@ -32,7 +32,9 @@ takes the rank's row of :func:`~repro_torch.core.balance.pack_tasks`
 dyad list, both through the tiles chunk unit — ``census_csr`` — on the
 rank's device; the once contributions are folded on rank 0 only; and the
 one copy of a run, batch or delta is preceded by the merge, one int64
-all-reduce per mesh dimension (:func:`_collect`).
+all-reduce per mesh dimension: the plan's SPMD schedule
+(:func:`~repro_torch.core.distributed.make_census_fn_for_mesh`,
+through :func:`_collect`).
 """
 from __future__ import annotations
 
@@ -46,7 +48,7 @@ from ..core import balance
 from ..core.census import (canonical_dyads, dyad_buckets,
                            enumerate_dyads_device, host_bucket_schedule,
                            sort_dyads_by_bucket)
-from ..core.distributed import merge_over_mesh, mesh_rank, mesh_size
+from ..core.distributed import deal, mesh_rank, mesh_size
 from ..core.graph import CSRGraph, GraphArrays
 from ..kernels.ops import TILE_NAMES, gather_tiles_device
 from ..kernels.triad_census import SENTINEL, census_csr
@@ -122,8 +124,7 @@ def folds_once(plan) -> bool:
     """Whether this process folds the plan's once contributions: a plan
     with once kernels does, on a distributed plan rank 0 only, since the
     merge sums every rank's accumulator."""
-    return plan._once is not None and (plan.backend != "distributed"
-                                       or mesh_rank(plan.mesh) == 0)
+    return plan._once is not None and mesh_rank(plan.mesh) == 0
 
 
 def _fold_once(plan, acc: torch.Tensor, arrays: GraphArrays, n: int) -> None:
@@ -459,12 +460,23 @@ def distributed_pass(plan, g: CSRGraph, acc: torch.Tensor) -> None:
 def distributed_subset_pass(plan, g: CSRGraph, u: np.ndarray, v: np.ndarray,
                             acc: torch.Tensor, *, arrays=None) -> None:
     """This rank's share of a subset pass: the dyads dealt round-robin,
-    rank ``r`` taking ``r::W`` (as the JAX package deals ``i % W``), run
-    like :func:`subset_pass`; the once contributions (unless ``arrays``
-    overrides the graph's arrays) on rank 0 only."""
-    W, r = mesh_size(plan.mesh), mesh_rank(plan.mesh)
-    subset_pass(plan, g, np.asarray(u)[r::W], np.asarray(v)[r::W], acc,
-                arrays=arrays)
+    rank ``r`` taking ``r::W`` (:func:`~repro_torch.core.distributed.deal`),
+    run like :func:`subset_pass`; the once contributions (unless
+    ``arrays`` overrides the graph's arrays) on rank 0 only."""
+    subset_pass(plan, g, deal(plan.mesh, np.asarray(u)),
+                deal(plan.mesh, np.asarray(v)), acc, arrays=arrays)
+
+
+def run_rank_row(plan, g: CSRGraph, arrays: GraphArrays, u: np.ndarray,
+                 v: np.ndarray) -> np.ndarray:
+    """A given task row ``(u, v)`` of this rank over ``arrays``, the
+    tensors of a graph shaped like ``g``, as a subset pass, merged over
+    the plan's mesh; no once contributions.  The run of the legacy
+    :func:`~repro_torch.core.distributed.make_distributed_census_fn`."""
+    arrays = plan.padded_arrays(g, arrays=arrays,
+                                with_flags=needs_flags(plan))
+    return _collect(plan, lambda acc: subset_pass(plan, g, u, v, acc,
+                                                  arrays=arrays))
 
 
 # ----------------------------------------------------------------------------
@@ -485,13 +497,14 @@ def _zeros(plan, *shape) -> torch.Tensor:
 def _collect(plan, fill, *shape) -> np.ndarray:
     """``fill(acc)`` into a fresh ``(*shape, total_bins)`` accumulator,
     then the one counted copy of its bins.  On the distributed backend
+    this is the plan's SPMD schedule (``plan.census_for_mesh``,
+    :func:`~repro_torch.core.distributed.make_census_fn_for_mesh`):
     ``fill`` adds this rank's share and the merge over the plan's mesh
-    (one all-reduce per mesh dimension) comes first; a failure of any
-    rank's ``fill`` raises on every rank
-    (:func:`~repro_torch.core.distributed.merge_over_mesh`)."""
+    (one all-reduce per mesh dimension) comes before the copy; a failure
+    of any rank's ``fill`` raises on every rank."""
+    if plan.census_for_mesh is not None:
+        return plan.census_for_mesh(fill, *shape)
     acc = _zeros(plan, *shape)
-    if plan.backend == "distributed":
-        return merge_over_mesh(plan.mesh, acc, fill, stats=plan.stats)
     fill(acc)
     return _acc_fetch(plan, acc)
 

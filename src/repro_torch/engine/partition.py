@@ -76,7 +76,7 @@ import weakref
 import numpy as np
 import torch
 
-from ..core.distributed import mesh_rank, mesh_size
+from ..core.distributed import deal, mesh_rank
 from ..core.graph import CSRGraph, GraphArrays, next_pow2
 from ..core.partition import (GraphPartition, _gather_rows, _host,
                               build_local_arrays, halo_by_owner, local_ptrs,
@@ -151,13 +151,12 @@ def _rank_split(plan, shard_lists):
     """This rank's part of ``shard_lists`` on a distributed plan (the
     list unchanged elsewhere): under ``"mesh"`` every W-th shard from the
     rank's own, under ``"serial"`` every shard's dyads dealt round-robin
-    (``r::W``), shards left without dyads dropped."""
-    if plan.backend != "distributed":
-        return shard_lists
-    W, r = mesh_size(plan.mesh), mesh_rank(plan.mesh)
+    (``r::W``), shards left without dyads dropped; both dealt by
+    :func:`~repro_torch.core.distributed.deal`."""
     if plan.partition_mode == "mesh":
-        return shard_lists[r::W]
-    split = [(shard, u[r::W], v[r::W]) for shard, u, v in shard_lists]
+        return deal(plan.mesh, shard_lists)
+    split = [(shard, deal(plan.mesh, u), deal(plan.mesh, v))
+             for shard, u, v in shard_lists]
     return [(shard, u, v) for shard, u, v in split if len(u)]
 
 
@@ -429,7 +428,7 @@ def _serial_pass(plan, g, part, geom, shard_lists, acc, pstats) -> None:
     t_base = time.perf_counter()
     step = make_step(plan, g.n)
     dev = plan.executor.devices[0]
-    label = mesh_rank(plan.mesh) if plan.backend == "distributed" else 0
+    label = mesh_rank(plan.mesh)
     for shard, u, v in _rank_split(plan, shard_lists):
         u, v, tasks = subset_schedule(plan, g, np.asarray(u, np.int32),
                                       np.asarray(v, np.int32))

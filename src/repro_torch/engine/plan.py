@@ -63,7 +63,7 @@ import numpy as np
 import torch
 
 from ..core.census import CensusResult
-from ..core.distributed import default_mesh
+from ..core.distributed import default_mesh, make_census_fn_for_mesh
 from ..core.graph import CSRGraph, GraphArrays, next_pow2, tensor_arrays
 from ..core.reorder import compute_permutation, permute_graph
 from ..kernels.ops import (MAX_PACKED_DEGREE, build_arc_flags_device,
@@ -150,6 +150,12 @@ class Plan:
                                      backend_fallbacks=0,
                                      schedule_fallbacks=0),
                       "fault_events": []}
+        # the distributed backend's SPMD schedule: this rank's share into a
+        # private accumulator, one merge over the mesh, one copy
+        self.census_for_mesh = (None if mesh is None else
+                                make_census_fn_for_mesh(
+                                    mesh, n_bins=self.layout.total_bins,
+                                    device=device, stats=self.stats))
         self.requested_backend = backend
         self.degradation: list = []
         self.partitions = config.resolve_partitions()
@@ -247,7 +253,8 @@ class Plan:
                 f"graph (n={g.n}, m={g.m}, m_nbr={g.m_nbr}) exceeds plan "
                 f"buckets {m}; recompile via repro_torch.engine.compile")
 
-    def padded_arrays(self, g: CSRGraph, *, with_in_csr: bool = False,
+    def padded_arrays(self, g: CSRGraph, *, arrays=None,
+                      with_in_csr: bool = False,
                       with_flags: bool = False) -> GraphArrays:
         """The graph's tensors on the plan's device, padded to the metadata
         buckets.  Padded ptr rows repeat the last offset (empty rows) and
@@ -255,10 +262,11 @@ class Plan:
         arc flags and range counts on the device (what the tiles backend's
         CSR census kernel reads; the counts are packed while the graph's
         max degree allows, else wide); ``with_in_csr`` the transpose CSR (the
-        six-tile gather's in-arc rows)."""
+        six-tile gather's in-arc rows).  ``arrays`` pads the tensors of
+        a graph shaped like ``g`` in place of ``g``'s own."""
         m = self.meta
         return self.pad_arrays(
-            g.arrays, g.m, g.m_nbr, m.m_out_bucket, m.m_nbr_bucket,
+            g.arrays if arrays is None else arrays, g.m, g.m_nbr, m.m_out_bucket, m.m_nbr_bucket,
             wide=g.max_deg > MAX_PACKED_DEGREE, with_in_csr=with_in_csr,
             with_flags=with_flags)
 

@@ -32,10 +32,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import brute_force_census
+from repro_torch.core import balance, brute_force_census
 from repro_torch.core import generators as tgen
 from repro_torch.core.delta import GraphDelta
 from repro_torch.core.distributed import (LocalMesh, RemoteRankError,
+                                          make_distributed_census_fn,
                                           merge_over_mesh)
 from repro_torch.core.graph import arcs_host
 from repro_torch.engine import (ChunkRetryError, EngineConfig, FaultPlan,
@@ -169,6 +170,15 @@ def _w2_cases(mesh, rank) -> dict:
     out["fatal_s"] = time.perf_counter() - t0
     # the group outlives the failure: a clean run on every rank after it
     out["after_fatal"] = compile(g, ALL_OPS, _cfg(), mesh=mesh).run_raw(g)
+    # the legacy builder: this rank's row of a W = 2 packing, merged
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        fn = make_distributed_census_fn(g, mesh, batch=32)
+    t = balance.pack_tasks(g, 2, pad_multiple=32)
+    c0 = merge_over_mesh.collectives
+    out["legacy"] = fn(g.arrays, g.n, t.u, t.v, t.valid)
+    out["legacy_collectives"] = merge_over_mesh.collectives - c0
+    out["legacy_row"] = int(t.valid[rank].sum())
     return out
 
 
@@ -498,7 +508,6 @@ def test_core_all_equals_the_jax_package_less_stack_graph_arrays():
 
 def _legacy_counts(name, g):
     import repro_torch.core as tcore
-    from repro_torch.core import balance
     from repro_torch.core.census import canonical_dyads, pad_dyads
 
     with pytest.warns(DeprecationWarning):
@@ -551,6 +560,24 @@ def test_legacy_core_shims_match_jax(name):
                     jg.arrays, jg.n, t.u, t.v, t.valid), np.int64)
     assert np.array_equal(np.asarray(got, np.int64),
                           np.asarray(want, np.int64))
+
+
+def test_legacy_distributed_builder_merges_over_two_ranks(ranks):
+    pytest.importorskip("jax")
+    import repro.core as jcore
+    from repro.core import balance as jbalance
+
+    jg = _jax_graph(_graph(0))
+    t = jbalance.pack_tasks(jg, 1, pad_multiple=32)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        want = np.asarray(jcore.make_distributed_census_fn(
+            jg, _jax_default_mesh(), batch=32)(
+                jg.arrays, jg.n, t.u, t.v, t.valid), np.int64)
+    for r, res in enumerate(ranks["w2"]):
+        assert np.array_equal(res["legacy"], want), r
+        assert res["legacy_collectives"] == 1
+        assert res["legacy_row"] > 0
 
 
 def _jax_default_mesh():
