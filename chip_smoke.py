@@ -118,7 +118,12 @@ script exits non-zero and prints no result.  Phases:
              one all-reduce and one copy a run, census_csr launches equal
              to the rank's tasks, census_csr against its plain version on
              the first and last chunk of each bucket of the rank's row and
-             the row timed, the packing's imbalance.  At W = 2 also:
+             the row timed, the packing's imbalance.  The W = 1 rank
+             also runs one granite MoE layer at full width (bf16, B 4 x
+             2048 tokens) through ``make_expert_parallel_moe`` on a
+             one-rank ``("data", "model")`` mesh: within 2e-2 of
+             ``moe_apply``, 2 all-to-alls, 1 all-gather, 0 all-reduces.
+             At W = 2 also:
              Slashdot in 8 shards (``"mesh"``, then ``"serial"``) equal to
              the unpartitioned bins; a k = 64 delta equal to the full
              recompute; chunk faults injected on rank 1 only, retried to
@@ -130,11 +135,15 @@ script exits non-zero and prints no result.  Phases:
              (B 4, T 2048, S 2080, H 32, Hkv 8, D 128) within 2e-2, f32
              within 2e-5, windowed cases, ragged T/S with offset
              positions at every supported head dim, and the edges of the
-             bf16 tiling (T 129 / S 257, G 1 and 8, T 1, window 8); the
-             build must show no ptxas spills in any bf16 instantiation;
-             CUDA-event times of the kernel, the plain version and SDPA on
-             the equal-work causal slice (T = S = 2048), and the kernel's
-             bound.
+             bf16 tiling (T 129 / S 257, G 1 and 8, T 1, window 8), MLA's
+             head dims (192 in bf16 and f32, 24), G 3 at D 64 and G 7 at D
+             128 at their prefill shapes, h2o-danube3's window at B 1, T =
+             S = 8192; the build must show no ptxas spills in any bf16
+             instantiation; CUDA-event times of the kernel, the plain
+             version and SDPA on the equal-work causal slice (T = S =
+             2048), and the kernel's bound; the same at MLA's shape (B 4,
+             T = S = 2048, H 128, D 192; two bounds: V padded to 192, V at
+             its 128 columns) and the window's time beside its bound.
 6. serve   — the serving main path at qwen3-4b's full width and depth
              (36 layers, d 2560, vocab 151936; bf16 weights from a seeded
              generator): prefill of B 4 x 2048 prompt tokens into the KV
@@ -146,14 +155,39 @@ script exits non-zero and prints no result.  Phases:
 7. serve_f32 — the same width at 2 layers in f32: prefill logits of the
              flash path against the dense path (<= 1e-3), and decode
              logits against the full forward at every position (<= 1e-3).
+   serve_families — every other attention architecture at full width,
+             bf16, one model on the card at a time (``FAMILIES``):
+             granite-moe-3b-a800m, qwen1.5-4b, h2o-danube-3-4b,
+             musicgen-large, pixtral-12b (1024 prefix embeddings),
+             deepseek-coder-33b (all 62 layers) and deepseek-v2-236b (1
+             dense + 3 MoE layers); a cell whose weights do not fit the
+             card fails.  Each: a
+             checked prefill holding every flash launch to the plain
+             version (scaled < 2e-2), then a timed prefill into the cache
+             and greedy decode, one flash launch per attention layer a
+             prefill and none in decode; prefill ms, decode ms per token,
+             peak memory, weight bytes; h2o-danube3 also one cacheless B 1
+             x 8192 prefill (the window on the kernel); granite and
+             deepseek-v2 profiled.
+   serve_f32_families — 2 layers in f32 at full width: flash against
+             dense prefill logits for granite, pixtral and deepseek-v2
+             (the dense run replays the flash run's MoE routing; at most
+             1 % of the choices, or 2, may differ), decode
+             (MLA: absorbed) against the full forward (<= 1e-3 each); and
+             h2o-danube3's 4096-slot ring across its wrap, every decode
+             step's logits equal to the cacheless forward's.
 8. the kernels line (census_csr's row adds its launches in the fused,
    fleet, session, dynamic, reorder, faults, partition, distributed (per
-   rank) and patents phases), then the result line.
+   rank) and patents phases; flash_attention's its launches per prefill
+   for every architecture and its MLA and window timings), then the
+   result line.
 
 Exits non-zero without a CUDA device.
 """
 import concurrent.futures
+import contextlib
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -173,11 +207,41 @@ T0 = time.perf_counter()
 # the serving cell: qwen3-4b at full width, B prompts of PROMPT tokens,
 # NEW greedy tokens each (the KV cache holds PROMPT + NEW slots)
 ARCH = "qwen3-4b"
-SERVE = dict(batch=4, prompt=2048, new=32)
+SERVE = dict(batch=4, prompt=2048, new=32, layers=36)
 # the f32 check: the same width at F32_LAYERS layers; decode is held
 # against the full forward over DECODE_T tokens
 F32_LAYERS = 2
 DECODE_T = 64
+# f32 scores per call of the plain flash version in a check (1 GiB)
+PLAIN_CHUNK_ELEMS = 2**28
+# the other attention families at full width, one cell each: arch ->
+# batch, prompt, new tokens, depth; the prefix of a vlm is its config's
+# n_prefix_embeds.  Every depth is the config's own but deepseek-v2's,
+# which keeps 1 dense + 3 MoE blocks (60 layers would be 472 GB).  A cell
+# whose bf16 weights do not fit the free memory fails the script.
+FAMILIES = {
+    "granite-moe-3b-a800m": dict(batch=4, prompt=2048, new=32, layers=32),
+    "qwen1.5-4b": dict(batch=4, prompt=2048, new=16, layers=40),
+    "h2o-danube-3-4b": dict(batch=4, prompt=2048, new=16, layers=24),
+    "musicgen-large": dict(batch=4, prompt=2048, new=16, layers=48),
+    "pixtral-12b": dict(batch=2, prompt=1024, new=16, layers=40),
+    "deepseek-coder-33b": dict(batch=1, prompt=2048, new=8, layers=62),
+    "deepseek-v2-236b": dict(batch=4, prompt=2048, new=16, layers=4),
+}
+PROFILED = ("granite-moe-3b-a800m", "deepseek-v2-236b")
+# the f32 families check: (arch, batch, text tokens, layers)
+F32_FAMILIES = (("granite-moe-3b-a800m", 1, 512, 2),
+                ("pixtral-12b", 2, 512, 2),
+                ("deepseek-v2-236b", 1, 512, 2))
+# h2o-danube3's ring across its wrap: prefill RING_PREFILL tokens into the
+# 4096-slot window ring, then RING_STEPS decode steps past slot 4096
+RING_PREFILL, RING_STEPS = 4064, 96
+# h2o-danube3's long cacheless prefill: (B, T, S, H, Hkv, D) and window
+DANUBE_WINDOW_SHAPE = (1, 8192, 8192, 32, 8, 120)
+DANUBE_WINDOW = 4096
+# deepseek-v2's prefill core at full width: B, T = S, H = Hkv, qk head dim
+# (nope + rope), V's useful head dim
+MLA_TIMING_SHAPE = (4, 2048, 128, 192, 128)
 
 
 def emit(phase, **fields):
@@ -402,14 +466,36 @@ def visible_pairs(torch, q_pos, kv_pos, window):
     return int(mask.sum())
 
 
-def plain_f32(torch, ref, q, k, v, q_pos, kv_pos, window):
-    """The plain version on the same input values, its output left in f32.
+def plain_error(torch, got, q, k, v, q_pos, kv_pos, window):
+    """``kernel_err`` of a kernel output against the plain version on the
+    same input values, its output left in f32.
 
     A bf16 kernel output is held against this rather than against the
     plain version's own bf16 output: the latter rounds once more, so two
     results a hair apart can land one bf16 step apart (0.03125 for
-    outputs in [4, 8)) without either being wrong."""
-    return ref(q.float(), k.float(), v.float(), q_pos, kv_pos, window=window)
+    outputs in [4, 8)) without either being wrong.  The plain version runs
+    once per batch row and slice of kv heads (with their query heads),
+    each slice's f32 scores under ``PLAIN_CHUNK_ELEMS``: at the serving
+    shapes one call over everything would hold tens of GB of scores."""
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    B, T, H, _ = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    step = max(1, PLAIN_CHUNK_ELEMS // (G * T * S))
+    err = scaled = 0.0
+    for b in range(B):
+        for h0 in range(0, Hkv, step):
+            h1 = min(Hkv, h0 + step)
+            qs = slice(h0 * G, h1 * G)
+            want = flash_attention_ref(
+                q[b:b + 1, :, qs].float(), k[b:b + 1, :, h0:h1].float(),
+                v[b:b + 1, :, h0:h1].float(), q_pos[b:b + 1],
+                kv_pos[b:b + 1], window=window)
+            e, s = kernel_err(got[b:b + 1, :, qs], want)
+            err, scaled = max(err, e), max(scaled, s)
+            del want
+    return err, scaled
 
 
 def ptxas_spills(log):
@@ -463,8 +549,22 @@ def flash_kernel_phase(torch, dev):
         ("single_query_bf16", bf16, (2, 1, 77, 4, 2, 128),
          dict(q0=(60, 200)), None, 2e-2),
         ("window_8_bf16", bf16, (2, 300, 300, 4, 2, 128), {}, 8, 2e-2),
+        # MLA's core (G 1 at qk head dim 192, 64-key kv tiles on the bf16
+        # route; 24 at smoke size), granite's G 3 at D 64 and
+        # deepseek-coder's G 7 at D 128 at their prefill shapes, and
+        # h2o-danube3's window at its long prefill
+        ("mla_g1_d192_bf16", bf16, (2, 300, 300, 8, 8, 192), {}, None,
+         2e-2),
+        ("mla_g1_d192_f32", f32, (2, 300, 300, 8, 8, 192), {}, None, 2e-5),
+        ("mla_g1_d24_bf16", bf16, (2, 300, 300, 4, 4, 24), {}, None, 2e-2),
+        ("granite_g3_d64_bf16", bf16, (B, P, P + N, 24, 8, 64),
+         dict(filled=P), None, 2e-2),
+        ("coder_g7_d128_bf16", bf16, (1, P, P + 8, 56, 8, 128),
+         dict(filled=P), None, 2e-2),
+        ("danube_window_bf16", bf16, DANUBE_WINDOW_SHAPE, {}, DANUBE_WINDOW,
+         2e-2),
     ]
-    for D in (16, 32, 64, 120, 128):  # ragged T and S, offset queries
+    for D in (16, 24, 32, 64, 120, 128, 192):  # ragged T, S; offset queries
         for dtype, tol in ((f32, 2e-5), (bf16, 2e-2)):
             cases.append((f"ragged_offset_d{D}_{str(dtype)[6:]}", dtype,
                           (2, 100, 173, 4, 2, D), dict(q0=73), None, tol))
@@ -472,16 +572,15 @@ def flash_kernel_phase(torch, dev):
     for name, dtype, shape, opts, window, tol in cases:
         args = flash_inputs(torch, dev, dtype, *shape, **opts)
         got = flash_attention(*args, window=window)
-        want = plain_f32(torch, flash_attention_ref, *args, window)
         torch.cuda.synchronize()
-        err, scaled = kernel_err(got, want)
+        err, scaled = plain_error(torch, got, *args, window)
         check(scaled < tol, f"flash kernel {name}: scaled error {scaled} "
                             f">= {tol} (max abs {err})")
         if dtype == bf16:
             max_err = max(max_err, err)
         emit("flash_case", case=name, shape=list(shape), window=window,
              max_abs_err=err, max_scaled_err=scaled, tolerance=tol)
-        del got, want
+        del got, args
 
     # times and bound at the prefill shape
     q, k, v, q_pos, kv_pos = args = flash_inputs(
@@ -512,6 +611,77 @@ def flash_kernel_phase(torch, dev):
          byte_ms=byte_ms, tflop_per_s=flops / ms / 1e9,
          kernel_over_bound=ms / bound_ms, library_over_kernel=library_ms / ms,
          **out)
+    del q, k, v, q_pos, kv_pos, args, qs, ks, vs
+    out.update(mla=flash_mla_timing(torch, dev),
+               window=flash_window_timing(torch, dev))
+    torch.cuda.empty_cache()
+    return out
+
+
+def flash_mla_timing(torch, dev):
+    """The kernel at MLA's prefill shape (B 4, T = S = 2048, H = Hkv =
+    128, qk head dim 192, causal; V padded to 192 as the model pads it),
+    the plain version and SDPA on the same inputs, and two bounds: the
+    padded work the kernel computes (QK^T and PV at 192 columns), and the
+    work with V counted at its 128 useful columns."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    B, T, H, D, V = MLA_TIMING_SHAPE
+    q, k, v, q_pos, kv_pos = args = flash_inputs(
+        torch, dev, torch.bfloat16, B, T, T, H, H, D, seed=5)
+    v[..., V:] = 0  # the model's zero padding
+    got = flash_attention(*args)
+    torch.cuda.synchronize()
+    err, scaled = plain_error(torch, got, *args, None)
+    check(scaled < 2e-2, f"flash kernel at the MLA shape: scaled error "
+                         f"{scaled} (max abs {err})")
+    del got
+    ms = event_ms(torch, lambda: flash_attention(*args), reps=20)
+    plain_ms = event_ms(torch, lambda: flash_attention_ref(*args), reps=1)
+    qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    library_ms = event_ms(torch, lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True), reps=20)
+    pairs = visible_pairs(torch, q_pos, kv_pos, None)
+    flops = 4 * D * H * pairs
+    flops_v128 = 2 * (D + V) * H * pairs
+    nbytes = sum(t.numel() * t.element_size() for t in args) + \
+        q.numel() * q.element_size()
+    flop_ms = flops / BF16_FLOP_PER_S * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    out = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=max(flop_ms, byte_ms),
+               bound_by="operations" if flop_ms >= byte_ms else "bytes",
+               bound_ms_v128=max(flops_v128 / BF16_FLOP_PER_S * 1e3,
+                                 byte_ms),
+               max_abs_err=err)
+    emit("flash_kernel_mla", shape=dict(B=B, T=T, S=T, H=H, Hkv=H, D=D),
+         visible_pairs=pairs, flops=flops, flops_v128=flops_v128,
+         bytes=nbytes, tflop_per_s=flops / ms / 1e9,
+         kernel_over_bound=ms / out["bound_ms"],
+         kernel_over_bound_v128=ms / out["bound_ms_v128"],
+         library_over_kernel=library_ms / ms, max_scaled_err=scaled, **out)
+    return out
+
+
+def flash_window_timing(torch, dev):
+    """The kernel at h2o-danube3's long prefill (B 1, T = S = 8192, H 32,
+    Hkv 8, D 120, window 4096) beside its bound."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    args = flash_inputs(torch, dev, torch.bfloat16, *DANUBE_WINDOW_SHAPE,
+                        seed=6)
+    ms = event_ms(torch, lambda: flash_attention(
+        *args, window=DANUBE_WINDOW), reps=20)
+    q, _, _, q_pos, kv_pos = args
+    pairs = visible_pairs(torch, q_pos, kv_pos, DANUBE_WINDOW)
+    flop_ms = 4 * q.shape[3] * q.shape[2] * pairs / BF16_FLOP_PER_S * 1e3
+    out = dict(ms=ms, bound_ms=flop_ms, bound_by="operations",
+               visible_pairs=pairs)
+    emit("flash_kernel_window", shape=list(DANUBE_WINDOW_SHAPE),
+         window=DANUBE_WINDOW, kernel_over_bound=ms / flop_ms, **out)
     return out
 
 
@@ -546,112 +716,11 @@ def device_split(torch, fn):
 
 
 def serve_phase(torch, dev):
-    """The serving main path at full width: checked, timed, profiled."""
-    from repro_torch.config import RunConfig, get_config
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.ref import flash_attention_ref
-    from repro_torch.models.attention import SENTINEL
-    from repro_torch.models.convert import from_jax_params
-    from repro_torch.models.transformer import init_cache, init_model
-    from repro_torch.serve import make_prefill_cache_step, make_serve_step
-
-    cfg = get_config(ARCH)
-    run = RunConfig(attention_impl="flash", param_dtype="bfloat16",
-                    compute_dtype="bfloat16")
-    B, P, N = SERVE["batch"], SERVE["prompt"], SERVE["new"]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(0)
-    model = from_jax_params(cfg, init_model(cfg, gen, torch.bfloat16),
-                            run=run, device=dev)
-    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
-                            device=dev, dtype=torch.int32)
-    cache = init_cache(cfg, B, P + N, dtype=torch.bfloat16, device=dev)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    emit("serve_setup", arch=ARCH, layers=cfg.n_layers, d_model=cfg.d_model,
-         vocab=cfg.vocab_size, params=n_params, batch=B, prompt=P, new=N,
-         seconds=time.perf_counter() - t0,
-         weight_bytes=sum(p.numel() * p.element_size()
-                          for p in model.parameters()))
-    prefill = make_prefill_cache_step(cfg, run)
-    serve = make_serve_step(cfg, run)
-
-    # a checked prefill: every layer's kernel output against the plain
-    # version on that layer's own q, k, v and positions
-    errs = []
-
-    def hold_to_plain(core, args, out):
-        if args[0].shape[1] > 1:
-            want = plain_f32(torch, flash_attention_ref, *args, core.window)
-            errs.append(kernel_err(out, want))
-
-    hooks = [blk.attn.core.register_forward_hook(hold_to_plain)
-             for blk in model.layers]
-    flash_attention.launches = 0
-    logits, cache = prefill(model, prompts, cache)
-    torch.cuda.synchronize()
-    for h in hooks:
-        h.remove()
-    check(flash_attention.launches == cfg.n_layers == len(errs),
-          f"checked prefill: {flash_attention.launches} launches, "
-          f"{len(errs)} checked, {cfg.n_layers} layers")
-    abs_errs, scaled_errs = zip(*errs)
-    check(max(scaled_errs) < 2e-2,
-          f"checked prefill: scaled error {max(scaled_errs)} (max abs "
-          f"{max(abs_errs)})")
-    check(logits.shape == (B, P, cfg.vocab_size)
-          and bool(torch.isfinite(logits).all()), "prefill logits")
-    emit("serve_checked", launches=len(errs), max_abs_err=max(abs_errs),
-         max_scaled_err=max(scaled_errs), per_layer_abs_err=abs_errs)
-    del logits
-
-    # the timed main path: prefill, then greedy decode to N new tokens
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = 0
-    t0 = time.perf_counter()
-    logits, cache = prefill(model, prompts, cache)
-    tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
-    prefill_launches = flash_attention.launches
-    check(bool(torch.isfinite(logits[:, -1]).all()), "prefill logits")
-    del logits
-    out = [tok]
-    t0 = time.perf_counter()
-    for i in range(N - 1):
-        tok, cache, step_logits = serve(model, cache, tok, P + i)
-        out.append(tok)
-    torch.cuda.synchronize()
-    decode_s = time.perf_counter() - t0
-    launches = flash_attention.launches
-    peak = torch.cuda.max_memory_allocated()
-    tokens = torch.cat(out, 1)
-    check(prefill_launches == launches == cfg.n_layers,
-          f"timed run: {prefill_launches} flash launches in prefill, "
-          f"{launches} in all; want {cfg.n_layers} (decode runs none)")
-    check(tokens.shape == (B, N) and bool(((tokens >= 0)
-                                           & (tokens < cfg.vocab_size)).all())
-          and bool(torch.isfinite(step_logits).all()), "decoded tokens")
-    check(int(cache.pos[0, 0, P + N - 2]) == P + N - 2
-          and int(cache.pos[0, 0, P + N - 1]) == SENTINEL,
-          "cache slots after decode")
-    emit("serve", prefill_ms=prefill_s * 1e3,
-         prefill_tokens_per_s=B * P / prefill_s,
-         decode_ms_per_token=decode_s * 1e3 / (N - 1),
-         decode_tokens_per_s=B * (N - 1) / decode_s,
-         flash_launches_per_prefill=prefill_launches,
-         max_memory_allocated=peak, first_tokens=tokens[:, :8].tolist())
-
-    # where one prefill's and one decode step's device time goes
-    emit("serve_profile", step="prefill", **device_split(
-        torch, lambda: prefill(model, prompts, cache)))
-    emit("serve_profile", step="decode", **device_split(
-        torch, lambda: serve(model, cache, tok, P)))
-    del model, cache
-    torch.cuda.empty_cache()
-    return dict(launches=launches, max_abs_err=max(abs_errs))
+    """The serving main path at qwen3-4b's full width: checked, timed,
+    profiled (prefill and one decode step)."""
+    rec = serve_family(torch, dev, ARCH, SERVE, phase="serve", profile=("prefill", "decode"))
+    return dict(launches=rec["flash_launches_per_prefill"],
+                max_abs_err=rec["max_abs_err"])
 
 
 def serve_f32_phase(torch, dev):
@@ -690,7 +759,8 @@ def serve_f32_phase(torch, dev):
     prefill_err = float((logits["flash"] - logits["dense"]).abs().max())
     check(prefill_err <= 1e-3, f"f32 prefill flash vs dense: {prefill_err}")
     cache_err = max(float((a.float() - b.float()).abs().max())
-                    for a, b in zip(caches["flash"], caches["dense"]))
+                    for a, b in zip(caches["flash"]["layers"],
+                                    caches["dense"]["layers"]))
     del logits, caches
 
     run = runs["flash"]
@@ -712,6 +782,348 @@ def serve_f32_phase(torch, dev):
          decode_vs_full_forward_max_abs=decode_err)
     del models, params, full, cache
     torch.cuda.empty_cache()
+
+
+def family_config(torch, arch, spec):
+    """The cell's config: the arch at full width and ``spec["layers"]``
+    layers, checked to fit the card once the previous cell's model is
+    freed.  Returns ``(cfg, cut)``, ``cut`` naming a cut depth or None."""
+    from repro_torch.config import get_config
+    from repro_torch.models.params import count_params
+    from repro_torch.models.transformer import model_defs
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=spec["layers"])
+    cut = (None if cfg.n_layers == full.n_layers
+           else f"{cfg.n_layers} of {full.n_layers} layers")
+    gc.collect()  # the previous cell's model, then its cached blocks
+    torch.cuda.empty_cache()
+    need = 2 * count_params(model_defs(cfg))
+    free = torch.cuda.mem_get_info()[0]
+    check(need <= free, f"{arch}: {need} bytes of bf16 weights at "
+                        f"{cfg.n_layers} layers, {free} free")
+    return cfg, cut
+
+
+def serve_family(torch, dev, arch, spec, *, phase="family", profile=()):
+    """One architecture's cell at full width, bf16: a checked prefill
+    (every flash launch held to the plain version on that layer's own
+    inputs), then a timed prefill into the cache and greedy decode (one
+    flash launch per attention layer per prefill, none per decode step),
+    then the ``profile`` steps ("prefill", "decode") under torch.profiler.
+    Emits ``{phase}_setup``, ``phase`` and ``{phase}_profile`` lines."""
+    from repro_torch.config import RunConfig
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.attention import SENTINEL
+    from repro_torch.models.convert import from_jax_params
+    from repro_torch.models.transformer import init_cache, init_model
+    from repro_torch.serve import (make_prefill_cache_step, make_prefill_step,
+                                   make_serve_step)
+
+    cfg, cut = family_config(torch, arch, spec)
+    run = RunConfig(attention_impl="flash", param_dtype="bfloat16",
+                    compute_dtype="bfloat16")
+    B, T, N = spec["batch"], spec["prompt"], spec["new"]
+    P = cfg.n_prefix_embeds
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = from_jax_params(cfg, init_model(cfg, gen, torch.bfloat16),
+                            run=run, device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
+                            device=dev, dtype=torch.int32)
+    prefix = None
+    if P:  # the vision stub's patch embeddings, at the embeddings' scale
+        prefix = torch.randn((B, P, cfg.d_model), generator=gen, device=dev,
+                             dtype=torch.bfloat16).mul_(0.02)
+    cache = init_cache(cfg, B, P + T + N, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    blocks = model.blocks()
+    layers = spec["layers"]  # one flash launch per attention layer
+    check(len(blocks) == layers,
+          f"{arch}: {len(blocks)} attention layers built, want {layers}")
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    emit(f"{phase}_setup", arch=arch, layers=cfg.n_layers, cut=cut,
+         d_model=cfg.d_model, vocab=cfg.vocab_size, batch=B, prefix=P,
+         prompt=T, new=N, weight_bytes=weight_bytes,
+         seconds=time.perf_counter() - t0)
+    prefill = make_prefill_cache_step(cfg, run)
+    serve = make_serve_step(cfg, run)
+
+    errs = []
+
+    def hold_to_plain(core, args, out):
+        errs.append(plain_error(torch, out, *args, core.window))
+
+    hooks = [blk.attn.core.register_forward_hook(hold_to_plain)
+             for blk in blocks]
+    flash_attention.launches = 0
+    logits, cache = prefill(model, prompts, cache, prefix)
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    check(flash_attention.launches == layers == len(errs),
+          f"{arch} checked prefill: {flash_attention.launches} launches, "
+          f"{len(errs)} checked, want {layers}")
+    abs_errs, scaled_errs = zip(*errs)
+    check(max(scaled_errs) < 2e-2,
+          f"{arch} checked prefill: scaled error {max(scaled_errs)} (max "
+          f"abs {max(abs_errs)})")
+    check(logits.shape == (B, P + T, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), f"{arch} prefill logits")
+    del logits
+
+    # the timed run: peak memory from here, as in the earlier qwen3-4b cell
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    logits, cache = prefill(model, prompts, cache, prefix)
+    tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = flash_attention.launches
+    check(bool(torch.isfinite(logits[:, -1]).all()), f"{arch} logits")
+    del logits
+    out = [tok]
+    t0 = time.perf_counter()
+    for i in range(N - 1):
+        tok, cache, step_logits = serve(model, cache, tok, P + T + i)
+        out.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = flash_attention.launches
+    tokens = torch.cat(out, 1)
+    check(prefill_launches == launches == layers,
+          f"{arch} timed run: {prefill_launches} flash launches in prefill, "
+          f"{launches} in all; want {layers} (decode runs none)")
+    check(tokens.shape == (B, N) and bool(((tokens >= 0)
+                                           & (tokens < cfg.vocab_size)).all())
+          and bool(torch.isfinite(step_logits).all()), f"{arch} tokens")
+    pos = cache["layers"].pos
+    last = P + T + N - 2
+    check(int(pos[0, 0, last % pos.shape[-1]]) == last
+          and (pos.shape[-1] < last + 2
+               or int(pos[0, 0, last + 1]) == SENTINEL),
+          f"{arch} cache slots after decode")
+    rec = dict(arch=arch, prefill_ms=prefill_s * 1e3,
+               prefill_tokens_per_s=B * (P + T) / prefill_s,
+               decode_ms_per_token=decode_s * 1e3 / (N - 1),
+               decode_tokens_per_s=B * (N - 1) / decode_s,
+               flash_launches_per_prefill=prefill_launches,
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               weight_bytes=weight_bytes, layers=cfg.n_layers, cut=cut,
+               max_abs_err=max(abs_errs), max_scaled_err=max(scaled_errs),
+               per_layer_abs_err=abs_errs,
+               first_tokens=tokens[:, :8].tolist())
+    if arch == "h2o-danube-3-4b":  # the window on the kernel, cacheless
+        Bl, L = DANUBE_WINDOW_SHAPE[:2]
+        long = torch.randint(0, cfg.vocab_size, (Bl, L), generator=gen,
+                             device=dev, dtype=torch.int32)
+        torch.cuda.synchronize()
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        lg = make_prefill_step(cfg, run)(model, long)
+        torch.cuda.synchronize()
+        rec.update(long_prefill=dict(
+            batch=Bl, prompt=L, window=cfg.sliding_window,
+            ms=(time.perf_counter() - t0) * 1e3,
+            launches=flash_attention.launches))
+        check(flash_attention.launches == layers
+              and bool(torch.isfinite(lg[:, -1]).all()),
+              f"{arch} long prefill: {flash_attention.launches} launches")
+        del lg, long
+    emit(phase, **rec)
+    steps = dict(prefill=lambda: prefill(model, prompts, cache, prefix),
+                 decode=lambda: serve(model, cache, tok, P + T))
+    for step in profile:
+        emit(f"{phase}_profile", arch=arch, step=step,
+             **device_split(torch, steps[step]))
+    del model, blocks, cache, prompts, prefix, steps
+    return rec
+
+
+def serve_families_phase(torch, dev):
+    """Every other attention family's cell (``FAMILIES``), one model on the
+    card at a time.  Returns ``({arch: flash launches per prefill}, the
+    largest checked error)``."""
+    recs = {arch: serve_family(torch, dev, arch, spec, profile=(
+        ("prefill",) if arch in PROFILED else ())) for arch, spec in
+        FAMILIES.items()}
+    return ({arch: r["flash_launches_per_prefill"]
+             for arch, r in recs.items()},
+            max(r["max_abs_err"] for r in recs.values()))
+
+
+@contextlib.contextmanager
+def pinned_routing():
+    """Record every MoE routing decision while ``pin["mode"]`` is
+    ``"record"`` and replay them, in order, while it is ``"replay"``.
+
+    A replayed call computes its own router probabilities and keeps the
+    recorded expert ids, the gates renormalised from its own
+    probabilities; ``pin["flips"]`` counts the (token, layer) choices
+    whose own top-k differed.  Two runs of one model whose attention paths
+    differ by f32 rounding (~1e-5) then differ continuously: a near-tied
+    top-k choice that flips between them would otherwise swap a whole
+    expert's output into one token, which says nothing about either
+    attention path.  The caller bounds ``pin["flips"]``, so that a drift
+    that moves many choices still fails.  The pin works because
+    ``moe_apply`` looks ``route`` up as a global of ``models.moe`` on
+    every call."""
+    from repro_torch.models import moe as moe_mod
+
+    original = moe_mod.route
+    pin = dict(mode="record", recorded=[], at=0, flips=0, decisions=0)
+
+    def route(x, router, top_k):
+        probs, gate, ids = original(x, router, top_k)
+        if pin["mode"] == "record":
+            pin["recorded"].append(ids)
+            return probs, gate, ids
+        want = pin["recorded"][pin["at"]]
+        pin["at"] += 1
+        pin["flips"] += int((ids.sort(-1).values != want.sort(-1).values)
+                            .any(-1).sum())
+        pin["decisions"] += ids[..., 0].numel()
+        g = probs.gather(-1, want)
+        return probs, g / g.sum(-1, keepdim=True).clamp(min=1e-9), want
+
+    moe_mod.route = route
+    try:
+        yield pin
+    finally:
+        moe_mod.route = original
+
+
+def f32_family_check(torch, dev, arch, B, T, layers):
+    """``arch`` at full width, ``layers`` layers, f32: prefill logits of the
+    flash path against the dense path (<= 1e-3), then decode logits
+    through the cache (MLA: the absorbed path) against the full forward
+    over DECODE_T tokens (<= 1e-3; MoE with capacity factor 16, so that
+    the 2-token decode batches and the full forward drop no pair, as the
+    JAX package's own decode test does)."""
+    from repro_torch.config import RunConfig, get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.convert import from_jax_params
+    from repro_torch.models.transformer import init_cache, init_model
+    from repro_torch.serve import (make_prefill_cache_step, make_prefill_step,
+                                   make_serve_step)
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    P = cfg.n_prefix_embeds
+    gen = torch.Generator(device=dev).manual_seed(2)
+    params = init_model(cfg, gen, torch.float32)
+    runs = {impl: RunConfig(attention_impl=impl, param_dtype="float32",
+                            compute_dtype="float32")
+            for impl in ("flash", "dense")}
+    models = {impl: from_jax_params(cfg, params, run=run, device=dev)
+              for impl, run in runs.items()}
+    prompts = torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
+                            device=dev, dtype=torch.int32)
+    prefix = None
+    if P:
+        prefix = torch.randn((B, P, cfg.d_model), generator=gen,
+                             device=dev).mul_(0.02)
+    logits = {}
+    with pinned_routing() as pin:  # the dense run takes the flash run's
+        for impl, run in runs.items():  # expert choices
+            pin["mode"] = "record" if impl == "flash" else "replay"
+            flash_attention.launches = 0
+            logits[impl] = make_prefill_step(cfg, run)(
+                models[impl], prompts, None, prefix)
+            torch.cuda.synchronize()
+            want = layers if impl == "flash" else 0
+            check(flash_attention.launches == want,
+                  f"f32 {arch} {impl}: {flash_attention.launches} flash "
+                  f"launches, want {want}")
+    check(pin["at"] == len(pin["recorded"]),
+          f"f32 {arch}: {pin['at']} of {len(pin['recorded'])} routings "
+          "replayed")
+    check(pin["flips"] <= max(2, pin["decisions"] // 100),
+          f"f32 {arch}: {pin['flips']} of {pin['decisions']} routing "
+          "choices differ between the flash and dense runs")
+    prefill_err = float((logits["flash"] - logits["dense"]).abs().max())
+    check(prefill_err <= 1e-3, f"f32 {arch} flash vs dense: {prefill_err}")
+    del logits, models
+
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=16.0))
+    run = runs["flash"]
+    model = from_jax_params(cfg, params, run=run, device=dev)
+    toks = prompts[:, :DECODE_T].contiguous()
+    full = make_prefill_step(cfg, run)(model, toks, None, prefix)[:, P:]
+    cache = init_cache(cfg, B, P + DECODE_T, dtype=torch.float32, device=dev)
+    serve = make_serve_step(cfg, run)
+    steps, start = [], 0
+    if P:  # the prefix and the first token, then a token a step
+        lg, cache = make_prefill_cache_step(cfg, run)(model, toks[:, :1],
+                                                      cache, prefix)
+        steps, start = [lg[:, -1]], 1
+    for t in range(start, DECODE_T):
+        _, cache, lg = serve(model, cache, toks[:, t:t + 1], P + t)
+        steps.append(lg)
+    decode_err = float((full - torch.stack(steps, 1)).abs().max())
+    check(decode_err <= 1e-3, f"f32 {arch} decode vs full: {decode_err}")
+    emit("family_f32", arch=arch, layers=layers, d_model=cfg.d_model,
+         batch=B, prefix=P, prompt=T, prefill_flash_vs_dense_max_abs=
+         prefill_err, routing_decisions=pin["decisions"],
+         routing_flips_pinned=pin["flips"], decode_tokens=DECODE_T,
+         decode_vs_full_forward_max_abs=decode_err)
+    del model, params, full, cache
+    torch.cuda.empty_cache()
+
+
+def ring_wrap_check(torch, dev):
+    """h2o-danube3 at full width, 2 layers, f32: prefill RING_PREFILL
+    tokens into its 4096-slot window ring, then RING_STEPS greedy-free
+    decode steps of the given tokens past slot 4096 (the ring wraps);
+    every step's logits equal the cacheless forward's at that position
+    (<= 1e-3)."""
+    from repro_torch.config import RunConfig, get_config
+    from repro_torch.models.convert import from_jax_params
+    from repro_torch.models.transformer import init_cache, init_model
+    from repro_torch.serve import (make_prefill_cache_step, make_prefill_step,
+                                   make_serve_step)
+
+    cfg = dataclasses.replace(get_config("h2o-danube-3-4b"),
+                              n_layers=F32_LAYERS)
+    run = RunConfig(attention_impl="flash", param_dtype="float32",
+                    compute_dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    model = from_jax_params(cfg, init_model(cfg, gen, torch.float32),
+                            run=run, device=dev)
+    L = RING_PREFILL + RING_STEPS
+    toks = torch.randint(0, cfg.vocab_size, (1, L), generator=gen,
+                         device=dev, dtype=torch.int32)
+    full = make_prefill_step(cfg, run)(model, toks)
+    cache = init_cache(cfg, 1, L, dtype=torch.float32, device=dev)
+    S = cache["layers"].pos.shape[-1]
+    check(S == cfg.sliding_window < L, f"ring of {S} slots for {L} tokens")
+    lg, cache = make_prefill_cache_step(cfg, run)(
+        model, toks[:, :RING_PREFILL], cache)
+    err = float((lg - full[:, :RING_PREFILL]).abs().max())
+    serve = make_serve_step(cfg, run)
+    for t in range(RING_PREFILL, L):
+        _, cache, lg = serve(model, cache, toks[:, t:t + 1], t)
+        err = max(err, float((lg - full[:, t]).abs().max()))
+    pos = cache["layers"].pos[0, 0]
+    check(int(pos[(L - 1) % S]) == L - 1 and int(pos.min()) == L - S,
+          "ring positions after the wrap")
+    check(err <= 1e-3, f"ring decode vs cacheless forward: {err}")
+    emit("ring_wrap", arch=cfg.name, layers=cfg.n_layers, slots=S,
+         prefill=RING_PREFILL, decode_steps=RING_STEPS, wrapped_slots=L - S,
+         max_abs_vs_cacheless_forward=err)
+    del model, full, cache
+    torch.cuda.empty_cache()
+
+
+def serve_f32_families_phase(torch, dev):
+    for arch, B, T, layers in F32_FAMILIES:
+        f32_family_check(torch, dev, arch, B, T, layers)
+    ring_wrap_check(torch, dev)
 
 
 def amazon_phase(torch, dev, rates):
@@ -2213,6 +2625,73 @@ def rank_delta_fault_phase(torch, dev, mesh, g, rank, label):
     return delta_launches, fault_launches
 
 
+def expert_parallel_rank(torch, dev):
+    """One granite MoE layer at full width (d 1536, 40 experts, top 8,
+    d_ff 512) in bf16 through ``make_expert_parallel_moe`` on this
+    process's one-rank ``("data", "model")`` mesh, against the port's
+    ``moe_apply`` on the same weights and tokens (B 4 x 2048): scaled
+    error < 2e-2, and 2 all-to-alls, 1 all-gather and 0 all-reduces
+    issued by the layer (counted on ``torch.distributed`` itself and by
+    the module)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.config import get_config
+    from repro_torch.models import moe_expert_parallel as ep
+    from repro_torch.models.moe import MoE, moe_apply
+
+    cfg = get_config("granite-moe-3b-a800m")
+    mesh = init_device_mesh(dev.type, (1, 1),
+                            mesh_dim_names=("data", "model"))
+    gen = torch.Generator(device=dev).manual_seed(4)
+    moe = MoE(cfg).to(device=dev, dtype=torch.bfloat16).requires_grad_(False)
+    for prm in moe.parameters():
+        prm.copy_(torch.randn(prm.shape, generator=gen, device=dev,
+                              dtype=torch.bfloat16)
+                  / float(prm.shape[-2]) ** 0.5)
+    x = torch.randn((4, 2048, cfg.d_model), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    p = {"moe/" + name: prm for name, prm in moe.named_parameters()}
+    apply = ep.make_expert_parallel_moe(cfg, mesh)
+    calls = dict.fromkeys(("all_to_all_single", "all_gather_into_tensor",
+                           "all_reduce"), 0)
+    originals = {name: getattr(dist, name) for name in calls}
+
+    def counted(name):
+        def wrapper(*args, **kwargs):
+            calls[name] += 1
+            return originals[name](*args, **kwargs)
+        return wrapper
+
+    module_before = dict(ep.COLLECTIVES)
+    for name in calls:
+        setattr(dist, name, counted(name))
+    try:
+        with torch.inference_mode():
+            y = apply(p, "moe/", x)
+            torch.cuda.synchronize()
+    finally:
+        for name, fn in originals.items():
+            setattr(dist, name, fn)
+    module = {k: ep.COLLECTIVES[k] - module_before.get(k, 0)
+              for k in ("all_to_all", "all_gather")}
+    with torch.inference_mode():
+        want, _ = moe_apply(moe, x)
+        ms = event_ms(torch, lambda: apply(p, "moe/", x), reps=5)
+        flat_ms = event_ms(torch, lambda: moe_apply(moe, x), reps=5)
+    err, scaled = kernel_err(y, want.float())
+    check(scaled < 2e-2, f"expert-parallel layer vs moe_apply: scaled "
+                         f"{scaled} (max abs {err})")
+    check(calls == {"all_to_all_single": 2, "all_gather_into_tensor": 1,
+                    "all_reduce": 0}
+          and module == {"all_to_all": 2, "all_gather": 1},
+          f"expert-parallel collectives: {calls}, module {module}")
+    emit("expert_parallel", arch=cfg.name, mesh=dict(data=1, model=1),
+         tokens=x.shape[0] * x.shape[1], max_abs_err=err,
+         max_scaled_err=scaled, collectives=calls, ms=ms, moe_apply_ms=flat_ms)
+    return calls
+
+
 def distributed_rank(rank, world, backend, tmp, dev_name="cuda"):
     """One rank of a distributed phase spawn: every rank on the one card
     (device index 0), a ``backend`` process group of ``world`` ranks
@@ -2264,8 +2743,11 @@ def distributed_rank(rank, world, backend, tmp, dev_name="cuda"):
             launches["amazon"] = rank_census_phase(
                 torch, dev, mesh, ga, ("triad_census",), rates,
                 f"amazon_{label}")
+        collectives = None
+        if backend == "nccl":
+            collectives = expert_parallel_rank(torch, dev)
         emit("distributed_rank_done", label=label, rank=rank,
-             launches=launches)
+             launches=launches, expert_parallel=collectives)
     finally:
         dist.destroy_process_group()
         sys.stdout.close()
@@ -2299,6 +2781,9 @@ def distributed_phase(torch, rates, rank_fn=distributed_rank,
                                           "rank": r}), flush=True)
                         if rec["phase"] == "distributed_rank_done":
                             done.append(rec["launches"])
+                            check(backend != "nccl"
+                                  or rec["expert_parallel"] is not None,
+                                  f"{name}: no expert-parallel layer ran")
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         check(len(done) == world, f"{name}: {len(done)} of {world} ranks "
@@ -2604,10 +3089,12 @@ def run(dev) -> int:
     torch.cuda.empty_cache()
     csr_row.update(distributed_launches=distributed_phase(torch, rates))
 
-    # 5.-7. the flash kernel and the serving path -----------------------------
+    # 5.-7. the flash kernel and the serving paths ----------------------------
     flash = flash_kernel_phase(torch, dev)
     served = serve_phase(torch, dev)
     serve_f32_phase(torch, dev)
+    family_launches, family_err = serve_families_phase(torch, dev)
+    serve_f32_families_phase(torch, dev)
 
     # 8. kernels line, result line --------------------------------------------
     flash_row = dict(
@@ -2615,10 +3102,13 @@ def run(dev) -> int:
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:23",
         launches=served["launches"],
-        max_abs_err=max(flash["max_abs_err"], served["max_abs_err"]),
+        max_abs_err=max(flash["max_abs_err"], served["max_abs_err"],
+                        flash["mla"]["max_abs_err"], family_err),
         ms=flash["ms"], plain_ms=flash["plain_ms"],
         bound_ms=flash["bound_ms"], bound_by=flash["bound_by"],
-        library_ms=flash["library_ms"])
+        library_ms=flash["library_ms"],
+        launches_per_prefill={ARCH: served["launches"], **family_launches},
+        mla_d192=flash["mla"], window_d120=flash["window"])
     print(json.dumps({"kernels": [csr_row, census_row, flash_row]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

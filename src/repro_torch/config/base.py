@@ -158,15 +158,25 @@ class RunConfig:
     JAX's ``"chunked"``/``"chunked_causal"`` XLA twins and its
     ``attention_chunk`` belong to training and wait with it: the kernel's
     tile is its own.  Single-token decode always takes the einsum decode
-    path, as in JAX.
+    path (MLA: the absorbed path), as in JAX.
+
+    ``moe_groups`` and ``moe_dense_eval`` are JAX's MoE dispatch knobs
+    (:func:`repro_torch.models.moe.moe_apply`), with JAX's defaults: one
+    flat capacity buffer, and the dispatch (not every expert on every
+    token).
     """
 
     attention_impl: Literal["flash", "dense"] = "flash"
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
+    moe_groups: Optional[int] = None  # GShard grouped dispatch (None = flat)
+    moe_dense_eval: bool = False  # all experts on every token, no dispatch
 
     def __post_init__(self):
         if self.attention_impl not in ("flash", "dense"):
             raise ValueError(
                 f"unknown attention impl {self.attention_impl!r}; the port "
                 "has 'flash' (JAX 'pallas') and 'dense'")
+        if self.moe_groups is not None and self.moe_groups < 1:
+            raise ValueError(f"moe_groups must be >= 1 or None, got "
+                             f"{self.moe_groups}")

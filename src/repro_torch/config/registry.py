@@ -1,8 +1,9 @@
 """Architecture registry of the port: ``get_config("qwen3-4b")``.
 
 Counterpart of :mod:`repro.config.registry`, limited to the architectures
-the port builds.  Asking for any other raises a ``KeyError`` that names
-what is ported.
+the port builds: every family that runs through the attention kernel
+(dense, vlm, audio, MoE and MLA).  Asking for any other (the SSM hybrid
+and RWKV) raises a ``KeyError`` that names what is ported.
 """
 from __future__ import annotations
 
@@ -15,7 +16,14 @@ _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
 
 #: ported architecture ids -> config module under repro_torch.configs
 ARCH_MODULES = {
+    "h2o-danube-3-4b": "h2o_danube3_4b",
+    "qwen1.5-4b": "qwen1p5_4b",
     "qwen3-4b": "qwen3_4b",
+    "deepseek-coder-33b": "deepseek_coder_33b",
+    "pixtral-12b": "pixtral_12b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
+    "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+    "musicgen-large": "musicgen_large",
 }
 
 

@@ -35,19 +35,21 @@
 //     for the producer); the grid runs the longest causal rows first (the
 //     q tile is the slowest grid index);
 //   * the producer stages the tile's q positions, loads Q once by TMA and
-//     streams 128-key K and V tiles by TMA into a two-stage ring (128-byte
-//     swizzle, zero fill past S, T and D; a 4-D map (D, heads, L, B), so
-//     head dim 120 pads with zeros, not the next head's columns), each
+//     streams 128-key K and V tiles (64-key at head dim 192, where two
+//     stages of 128-key tiles would not fit in shared memory) by TMA into
+//     a two-stage ring (128-byte swizzle, zero fill past S, T and D; a 4-D
+//     map (D, heads, L, B), so head dims 24 and 120 pad with zeros, not
+//     the next head's columns), each
 //     tile's positions and their min and max staged beside it, full/empty
 //     mbarriers between it and the consumers.  Tiles no query of the CTA
 //     can see are never loaded;
-//   * S = Q K^T by wgmma m64n128k16 with Q and K read from shared memory
-//     through descriptors; the softmax runs in the accumulator layout (row
-//     max and sum over the four lanes of a row, exp2 with scale * log2(e)
-//     folded into one FMA), the correction factor scales the O registers
-//     in place; P is packed to bf16 in registers and is the A operand of
-//     the P V wgmma (m64n{64,128}k16, V a transposed B in its natural
-//     (kv, D) layout);
+//   * S = Q K^T by wgmma m64n{128,64}k16 with Q and K read from shared
+//     memory through descriptors; the softmax runs in the accumulator
+//     layout (row max and sum over the four lanes of a row, exp2 with
+//     scale * log2(e) folded into one FMA), the correction factor scales
+//     the O registers in place; P is packed to bf16 in registers and is
+//     the A operand of the P V wgmma (m64n{64,128,192}k16, V a transposed
+//     B in its natural (kv, D) layout);
 //   * the position mask runs only on tiles that straddle a causal or
 //     window edge or hold SENTINEL or ragged slots, decided per warpgroup
 //     from the tile's min and max positions; interior tiles run unmasked,
@@ -55,10 +57,10 @@
 //   * epilogue: O / l in registers, each warp's 16 rows staged in bf16
 //     through its own rows of the Q buffer, then 16-byte stores of the
 //     rows below T.
-// The f32 route is a separate, simple kernel (scalar FMAs, S, P and O in
-// shared memory, one CTA of 4 warps per 64-row q tile), so f32 keeps full
-// precision (no TF32).  Neither kernel allocates; both run on the caller's
-// stream.
+// The f32 route is a separate, simple kernel (scalar FMAs, S (then P) and
+// O in shared memory, one CTA of 4 warps per 64-row q tile), so f32 keeps
+// full precision (no TF32).  Neither kernel allocates; both run on the
+// caller's stream.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -80,9 +82,7 @@ __host__ __device__ constexpr size_t align_up(size_t x, size_t a) {
 // ---- bf16: wgmma, TMA, register-resident softmax ---------------------------
 
 constexpr int kBM = 128;     // query rows per CTA, 64 per consumer warpgroup
-constexpr int kBN = 128;     // keys per kv tile
 constexpr int kStages = 2;   // K/V ring depth (two 64 KB stages at DP 128)
-constexpr int kNS = kBN / 2; // S registers per thread
 constexpr int kConsumers = 256;
 // + one producer warpgroup, of which one warp works: register budgets are
 // moved between whole warpgroups (setmaxnreg), 40 + 2 x 232 per thread
@@ -93,17 +93,27 @@ constexpr int kConsumerRegs = 232;
 constexpr int kRow = 128;    // bytes of one swizzled row: 64 bf16
 constexpr float kLog2e = 1.4426950408889634f;
 
+// Keys per kv tile: 128, or 64 at padded head dim 192 (MLA's nope + rope),
+// where 128-key tiles would need Q 48 KiB + 2 stages x (K + V) x 48 KiB =
+// 240 KiB of shared memory, over the 227 KiB a block may have; 64-key
+// tiles take ~146 KiB.  The O accumulator is DP / 2 registers a thread
+// (96 at 192) and S BN / 2 (32 at 64 keys).
+template <int DP>
+constexpr int kv_tile_keys() {
+  return DP > 128 ? 64 : 128;
+}
+
 // Shared memory, byte offsets from a 1024-byte aligned base.  Q, K and V
 // are stored as DP / 64 column blocks of (rows x 128 B), as TMA writes
-// them.
-template <int DP>
+// them; BN keys per kv tile.
+template <int DP, int BN>
 struct SmemBf16 {
   static constexpr int kBlocks = DP / 64;
   static constexpr size_t q = 0;
-  static constexpr size_t kv_tile = size_t(kBlocks) * kBN * kRow;  // K or V
+  static constexpr size_t kv_tile = size_t(kBlocks) * BN * kRow;  // K or V
   static constexpr size_t kv = q + size_t(kBlocks) * kBM * kRow;
-  static constexpr size_t kpos = kv + 2 * kStages * kv_tile;  // int[kStages][kBN]
-  static constexpr size_t hdr = kpos + 4 * kStages * kBN;     // int[kStages][4]
+  static constexpr size_t kpos = kv + 2 * kStages * kv_tile;  // int[2][BN]
+  static constexpr size_t hdr = kpos + 4 * kStages * BN;      // int[kStages][4]
   static constexpr size_t qpos = hdr + 16 * kStages;          // int[kBM]
   static constexpr size_t wg = qpos + 4 * kBM;                // int[2][4]
   static constexpr size_t bar = align_up(wg + 32, 8);         // q, full, empty
@@ -122,13 +132,13 @@ __device__ __forceinline__ int clamp_i32(long long x) {
   return static_cast<int>(x < INT_MIN ? INT_MIN : (x > INT_MAX ? INT_MAX : x));
 }
 
-template <int DP>
+template <int DP, int BN>
 __device__ __forceinline__ void producer(
     unsigned char* smem, const CUtensorMap* tq, const CUtensorMap* tk,
     const CUtensorMap* tv, const int* __restrict__ qpb,
     const int* __restrict__ kpb, int q0, int h, int hk, int b, int T_len,
     int S_len, int window) {
-  using L = SmemBf16<DP>;
+  using L = SmemBf16<DP, BN>;
   const int lane = threadIdx.x % 32;
   int* sQpos = reinterpret_cast<int*>(smem + L::qpos);
   int* sWg = reinterpret_cast<int*>(smem + L::wg);
@@ -178,10 +188,10 @@ __device__ __forceinline__ void producer(
     }
   }
 
-  constexpr int kPer = kBN / 32;  // positions per lane
+  constexpr int kPer = BN / 32;  // positions per lane
   int stage = 0;
   uint32_t phase = 0;
-  for (int k0 = 0; k0 < S_len; k0 += kBN) {
+  for (int k0 = 0; k0 < S_len; k0 += BN) {
     // Load the tile only if some query of the CTA may see one of its keys.
     int p[kPer];
     bool vis = false;
@@ -204,13 +214,13 @@ __device__ __forceinline__ void producer(
     }
     sm90::mbar_wait(&empty[stage], phase ^ 1);
 #pragma unroll
-    for (int e = 0; e < kPer; ++e) sKpos[stage * kBN + 32 * e + lane] = p[e];
+    for (int e = 0; e < kPer; ++e) sKpos[stage * BN + 32 * e + lane] = p[e];
     if (lane == 0) {
       int* hdr = sHdr + 4 * stage;
       hdr[0] = k0;
       hdr[1] = kmin;
       hdr[2] = kmax;
-      hdr[3] = min(kBN, S_len - k0);
+      hdr[3] = min(BN, S_len - k0);
     }
     __syncwarp();
     if (lane == 0) {
@@ -218,9 +228,9 @@ __device__ __forceinline__ void producer(
       unsigned char* sv = sk + L::kv_tile;
       sm90::mbar_arrive_expect_tx(&full[stage], 2 * L::kv_tile);
       for (int cb = 0; cb < L::kBlocks; ++cb) {
-        sm90::tma_load_4d(sk + cb * kBN * kRow, tk, 64 * cb, hk, k0, b,
+        sm90::tma_load_4d(sk + cb * BN * kRow, tk, 64 * cb, hk, k0, b,
                           &full[stage]);
-        sm90::tma_load_4d(sv + cb * kBN * kRow, tv, 64 * cb, hk, k0, b,
+        sm90::tma_load_4d(sv + cb * BN * kRow, tv, 64 * cb, hk, k0, b,
                           &full[stage]);
       }
     }
@@ -242,15 +252,15 @@ __device__ __forceinline__ void producer(
 // and lane / 4 + 8 (s[4 i + 2], s[4 i + 3]).  Masked scores are -inf on
 // entry and get p = 0.  On exit s holds p; m, l (this thread's partial row
 // sums) and the O registers are updated.
-template <bool kMasked, int NO>
-__device__ __forceinline__ void softmax_tile(float (&s)[kNS], float (&o)[NO],
+template <bool kMasked, int NS, int NO>
+__device__ __forceinline__ void softmax_tile(float (&s)[NS], float (&o)[NO],
                                              float (&m)[2], float (&l)[2],
                                              float scale_log2) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float mx = m[r];
 #pragma unroll
-    for (int i = 0; i < kBN / 8; ++i) {
+    for (int i = 0; i < NS / 4; ++i) {
       mx = fmaxf(mx, fmaxf(s[4 * i + 2 * r], s[4 * i + 2 * r + 1]));
     }
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
@@ -261,7 +271,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[kNS], float (&o)[NO],
     const float corr = mx == m[r] ? 1.f : exp2f((m[r] - mx) * scale_log2);
     float sum = 0.f;
 #pragma unroll
-    for (int i = 0; i < kBN / 8; ++i) {
+    for (int i = 0; i < NS / 4; ++i) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         float& x = s[4 * i + 2 * r + e];
@@ -280,14 +290,15 @@ __device__ __forceinline__ void softmax_tile(float (&s)[kNS], float (&o)[NO],
   }
 }
 
-template <int DP>
+template <int DP, int BN>
 __device__ __forceinline__ void consumer(unsigned char* smem,
                                          bf16* __restrict__ ob, int q0,
                                          long long q_row, int T_len,
                                          int S_len, int D, int window,
                                          float scale_log2) {
-  using L = SmemBf16<DP>;
+  using L = SmemBf16<DP, BN>;
   constexpr int NO = DP / 2;  // O registers per thread: DP / 8 blocks of 4
+  constexpr int NS = BN / 2;  // S registers per thread: BN / 8 blocks of 4
   const int wg = threadIdx.x / 128;
   const int warp = (threadIdx.x / 32) % 4;
   const int lane = threadIdx.x % 32;
@@ -333,14 +344,14 @@ __device__ __forceinline__ void consumer(unsigned char* smem,
     const bool skip = wg_rows == 0 || kmin > wg_qmax ||
                       (window > 0 && kmax <= wg_qmin - window);
     if (!skip) {
-      const bool interior = hdr[3] == kBN && kmax <= wg_qmin &&
+      const bool interior = hdr[3] == BN && kmax <= wg_qmin &&
                             (window <= 0 || kmin > wg_qmax - window);
       const unsigned char* sK = smem + L::kv + 2 * stage * L::kv_tile;
       const unsigned char* sV = sK + L::kv_tile;
 
       // 1. S = Q K^T: DP / 16 k-steps of 16, each 32 bytes into a 128-byte
       //    swizzled row; a new 64-column block every four steps.
-      float s[kNS];
+      float s[NS];
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < DP / 16; ++kk) {
@@ -348,8 +359,12 @@ __device__ __forceinline__ void consumer(unsigned char* smem,
         const uint64_t da = sm90::desc_sw128(
             sQ + (kk / 4) * kBM * kRow + off, 16, 1024);
         const uint64_t db = sm90::desc_sw128(
-            sK + (kk / 4) * kBN * kRow + off, 16, 1024);
-        sm90::wgmma_m64n128k16_ss(s, da, db, kk > 0);
+            sK + (kk / 4) * BN * kRow + off, 16, 1024);
+        if constexpr (BN == 128) {
+          sm90::wgmma_m64n128k16_ss(s, da, db, kk > 0);
+        } else {
+          sm90::wgmma_m64n64k16_ss(s, da, db, kk > 0);
+        }
       }
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
@@ -359,9 +374,9 @@ __device__ __forceinline__ void consumer(unsigned char* smem,
       if (interior) {
         softmax_tile<false>(s, o, m, l, scale_log2);
       } else {
-        const int* kp = sKpos + stage * kBN;
+        const int* kp = sKpos + stage * BN;
 #pragma unroll
-        for (int i = 0; i < kBN / 8; ++i) {
+        for (int i = 0; i < BN / 8; ++i) {
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int c = 8 * i + 2 * (lane % 4) + e;
@@ -380,10 +395,11 @@ __device__ __forceinline__ void consumer(unsigned char* smem,
 
       // 3. O += P V: P from registers (the S accumulator of k-slice kk is
       //    the A fragment of that slice), V as a transposed B, 16 keys
-      //    (2048 bytes) per step.
-      uint32_t a[kBN / 16][4];
+      //    (2048 bytes) per step, DP columns (64-column blocks BN rows
+      //    apart).
+      uint32_t a[BN / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < kBN / 16; ++kk) {
+      for (int kk = 0; kk < BN / 16; ++kk) {
         a[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
         a[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
         a[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
@@ -392,10 +408,12 @@ __device__ __forceinline__ void consumer(unsigned char* smem,
       sm90::fence_regs(o);
       sm90::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kBN / 16; ++kk) {
+      for (int kk = 0; kk < BN / 16; ++kk) {
         const uint64_t db =
-            sm90::desc_sw128(sV + kk * 16 * kRow, kBN * kRow, 1024);
-        if constexpr (DP == 128) {
+            sm90::desc_sw128(sV + kk * 16 * kRow, BN * kRow, 1024);
+        if constexpr (DP == 192) {
+          sm90::wgmma_m64n192k16_rs(o, a[kk], db);
+        } else if constexpr (DP == 128) {
           sm90::wgmma_m64n128k16_rs(o, a[kk], db);
         } else {
           sm90::wgmma_m64n64k16_rs(o, a[kk], db);
@@ -451,7 +469,7 @@ __device__ __forceinline__ void consumer(unsigned char* smem,
   }
 }
 
-template <int DP>
+template <int DP, int BN>
 __global__ void __launch_bounds__(kThreadsBf16, 1)
 flash_kernel_bf16(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tk,
@@ -460,7 +478,7 @@ flash_kernel_bf16(const __grid_constant__ CUtensorMap tq,
                   const int* __restrict__ kv_pos, bf16* __restrict__ o,
                   int T_len, int S_len, int H, int Hkv, int D, int window,
                   float scale_log2) {
-  using L = SmemBf16<DP>;
+  using L = SmemBf16<DP, BN>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       align_up(reinterpret_cast<uintptr_t>(smem_raw), 1024));
@@ -483,7 +501,7 @@ flash_kernel_bf16(const __grid_constant__ CUtensorMap tq,
   if (threadIdx.x >= kConsumers) {
     sm90::setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x < kConsumers + 32) {
-      producer<DP>(smem, &tq, &tk, &tv,
+      producer<DP, BN>(smem, &tq, &tk, &tv,
                    q_pos + static_cast<long long>(b) * T_len,
                    kv_pos + static_cast<long long>(b) * S_len, q0, h, hk, b,
                    T_len, S_len, window);
@@ -491,7 +509,7 @@ flash_kernel_bf16(const __grid_constant__ CUtensorMap tq,
   } else {
     sm90::setmaxnreg_inc<kConsumerRegs>();
     const long long q_row = static_cast<long long>(H) * D;
-    consumer<DP>(smem,
+    consumer<DP, BN>(smem,
                  o + static_cast<long long>(b) * T_len * q_row +
                      static_cast<long long>(h) * D,
                  q0, q_row, T_len, S_len, D, window, scale_log2);
@@ -553,19 +571,22 @@ int launch_bf16(const void* q, const void* k, const void* v, const int* q_pos,
     return static_cast<int>(cudaMemsetAsync(
         o, 0, sizeof(bf16) * size_t(B) * T_len * H * D, stream));
   }
+  constexpr int BN = kv_tile_keys<DP>();
   CUtensorMap tq, tk, tv;
   if (!tensor_map(&tq, q, B, T_len, H, D, kBM) ||
-      !tensor_map(&tk, k, B, S_len, Hkv, D, kBN) ||
-      !tensor_map(&tv, v, B, S_len, Hkv, D, kBN)) {
+      !tensor_map(&tk, k, B, S_len, Hkv, D, BN) ||
+      !tensor_map(&tv, v, B, S_len, Hkv, D, BN)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  constexpr int bytes = static_cast<int>(SmemBf16<DP>::bytes);
+  constexpr int bytes = static_cast<int>(SmemBf16<DP, BN>::bytes);
+  static_assert(bytes <= 232448, "over the 227 KiB of shared memory a block "
+                                 "may have");
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel_bf16<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_kernel_bf16<DP, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(H, B, (T_len + kBM - 1) / kBM);
-  flash_kernel_bf16<DP><<<grid, kThreadsBf16, bytes, stream>>>(
+  flash_kernel_bf16<DP, BN><<<grid, kThreadsBf16, bytes, stream>>>(
       tq, tk, tv, q_pos, kv_pos, static_cast<bf16*>(o), T_len, S_len, H, Hkv,
       D, window, kLog2e / sqrtf(static_cast<float>(D)));
   return static_cast<int>(cudaGetLastError());
@@ -579,18 +600,20 @@ constexpr int kThreads32 = 128;
 constexpr float kNegInf = -1e30f;
 
 // Shared-memory layout: byte offsets, each array 128-byte aligned.  Row
-// strides carry 16 bytes of padding (fewer bank conflicts).
+// strides carry 16 bytes of padding (fewer bank conflicts).  P overwrites
+// S in place (a lane reads its 32 scores into registers before it writes
+// their p), which keeps DP 192 at 213 KiB, under the 227 KiB a block may
+// have.
 template <int DP>
 struct SmemF32 {
   static constexpr int LD = DP + 4;        // Q, K, V rows
-  static constexpr int LDS = kBN32 + 4;    // S and P rows
+  static constexpr int LDS = kBN32 + 4;    // S (then P) rows
   static constexpr int LDO = DP + 4;       // O rows
   static constexpr size_t q = 0;
   static constexpr size_t k = align_up(q + 4 * kBM32 * LD, 128);
   static constexpr size_t v = align_up(k + 4 * kBN32 * LD, 128);
   static constexpr size_t s = align_up(v + 4 * kBN32 * LD, 128);
-  static constexpr size_t p = align_up(s + 4 * kBM32 * LDS, 128);
-  static constexpr size_t o = align_up(p + 4 * kBM32 * LDS, 128);
+  static constexpr size_t o = align_up(s + 4 * kBM32 * LDS, 128);
   static constexpr size_t kpos = align_up(o + 4 * kBM32 * LDO, 128);
   static constexpr size_t bytes = align_up(kpos + 4 * kBN32, 128);
 };
@@ -629,7 +652,7 @@ flash_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
   float* sK = reinterpret_cast<float*>(smem + L::k);
   float* sV = reinterpret_cast<float*>(smem + L::v);
   float* sS = reinterpret_cast<float*>(smem + L::s);
-  float* sP = reinterpret_cast<float*>(smem + L::p);
+  float* sP = sS;  // P overwrites S
   float* sO = reinterpret_cast<float*>(smem + L::o);
   int* sKpos = reinterpret_cast<int*>(smem + L::kpos);
   __shared__ int s_qmin, s_qmax;
@@ -764,6 +787,8 @@ int launch_f32(const void* q, const void* k, const void* v, const int* q_pos,
                const int* kv_pos, void* o, int B, int T_len, int S_len, int H,
                int Hkv, int D, int window, cudaStream_t stream) {
   constexpr int bytes = static_cast<int>(SmemF32<DP>::bytes);
+  static_assert(bytes <= 232448, "over the 227 KiB of shared memory a block "
+                                 "may have");
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel_f32<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -775,8 +800,9 @@ int launch_f32(const void* q, const void* k, const void* v, const int* q_pos,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Head dims 16, 32 and 64 pad to 64 (bf16) or run as they are (f32); 120
-// pads to 128 with zeros.
+// Head dims 16, 24, 32 and 64 pad to 64 (bf16) or run as they are (f32;
+// 24 pads to 32); 120 pads to 128 with zeros; 192 (MLA's nope + rope) runs
+// as it is, with 64-key kv tiles on the bf16 route.
 template <bool kBf16>
 int launch_d(const void* q, const void* k, const void* v, const int* q_pos,
              const int* kv_pos, void* o, int B, int T_len, int S_len, int H,
@@ -790,6 +816,7 @@ int launch_d(const void* q, const void* k, const void* v, const int* q_pos,
   switch (D) {
     case 16:
       FLASH_LAUNCH(16);
+    case 24:
     case 32:
       FLASH_LAUNCH(32);
     case 64:
@@ -797,6 +824,8 @@ int launch_d(const void* q, const void* k, const void* v, const int* q_pos,
     case 120:
     case 128:
       FLASH_LAUNCH(128);
+    case 192:
+      FLASH_LAUNCH(192);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

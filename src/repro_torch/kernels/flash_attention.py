@@ -17,8 +17,9 @@ import torch
 from . import _build
 from .ref import flash_attention_ref
 
-#: head dims the kernel is built for (every dense config of the repo)
-HEAD_DIMS = (16, 32, 64, 120, 128)
+#: head dims the kernel is built for: every attention config of the repo,
+#: full and smoke size (MLA's qk head dim nope + rope is 192 and 24)
+HEAD_DIMS = (16, 24, 32, 64, 120, 128, 192)
 
 
 @functools.lru_cache(maxsize=None)

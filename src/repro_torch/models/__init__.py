@@ -1,2 +1,3 @@
-"""The port's LM stack, dense GQA family: params, layers, attention, the
+"""The port's LM stack, the attention families (dense, vlm, audio, MoE,
+MLA): params, layers, attention, MoE and its expert-parallel form, the
 decoder and the converter from the JAX package's flat params."""

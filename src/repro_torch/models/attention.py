@@ -1,11 +1,12 @@
-"""GQA attention: the dense reference, the flash kernel, single-token decode.
+"""Attention: GQA (the dense reference, the flash kernel, single-token
+decode) and MLA (compressed KV with the absorbed decode path).
 
-Counterpart of the GQA half of :mod:`repro.models.attention`.  Projection
-weights are ``nn.Linear`` in PyTorch's (out, in) layout over the flattened
-head dim (``H * hd``), as JAX's flat ``(d, H * hd)`` tables transposed
+Counterpart of :mod:`repro.models.attention`.  Projection weights are
+``nn.Linear`` in PyTorch's (out, in) layout over the flattened head dim
+(``H * hd``), as JAX's flat ``(d, H * hd)`` tables transposed
 (:mod:`repro_torch.models.convert`).  The attention core is a submodule
-(:class:`AttentionCore`), so a forward hook sees its q, k, v, positions
-and output.  MLA waits for a later slice.
+(:class:`AttentionCore`) of both blocks, so a forward hook sees its q, k,
+v, positions and output: every prefill of either block runs through it.
 """
 from __future__ import annotations
 
@@ -183,3 +184,129 @@ class GQA(nn.Module):
             kv_pos = cache.pos
         out = self.core(q, k, v, positions, kv_pos).reshape(B, T, H * hd)
         return F.linear(out, self.wo.weight.to(x.dtype)), cache
+
+
+# ----------------------------------------------------------------------------
+# MLA (deepseek-v2): compressed-KV attention with the absorbed decode path
+# ----------------------------------------------------------------------------
+
+class MLACache(NamedTuple):
+    """MLA's decode cache: the compressed kv ``ckv`` (..., B, S, kv_lora),
+    the rotated shared key ``krope`` (..., B, S, rope_dim) and ``pos``
+    (..., B, S) int32 (``SENTINEL`` = empty).  Written in place at
+    ``cache_pos`` onward (no ring: MLA has no window)."""
+
+    ckv: torch.Tensor
+    krope: torch.Tensor
+    pos: torch.Tensor
+
+
+def mla_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    qk = m.nope_head_dim + m.rope_head_dim
+    return {
+        "wq_a": ParamDef((d, m.q_lora_rank), ("embed", "lora")),
+        "q_norm": ParamDef((m.q_lora_rank,), (None,), "ones"),
+        "wq_b": ParamDef((m.q_lora_rank, H * qk), ("lora", "heads_flat")),
+        "wkv_a": ParamDef((d, m.kv_lora_rank + m.rope_head_dim),
+                          ("embed", "lora")),
+        "kv_norm": ParamDef((m.kv_lora_rank,), (None,), "ones"),
+        "wk_b": ParamDef((m.kv_lora_rank, H * m.nope_head_dim),
+                         ("lora", "heads_flat")),
+        "wv_b": ParamDef((m.kv_lora_rank, H * m.v_head_dim),
+                         ("lora", "heads_flat")),
+        "wo": ParamDef((H * m.v_head_dim, d), ("heads_flat", "embed")),
+    }
+
+
+def _linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    return F.linear(x, lin.weight.to(x.dtype))
+
+
+class MLA(nn.Module):
+    """The MLA block body (no residual or norm), as JAX's ``mla_apply``.
+
+    Queries and the compressed kv come through low-rank projections with
+    RMS norms; RoPE turns only the ``rope_head_dim`` half.  A prefill
+    decompresses per-head K (nope part from ``ckv``, the shared rope key
+    broadcast to every head) and V, pads V with zeros to the qk head dim
+    (``nope + rope``: 192 at full width) and runs the attention core on
+    it, slicing V's width back after.  One query against a longer cache
+    takes the absorbed path: ``wk_b`` folded into the query and ``wv_b``
+    applied after the weighted sum, scores in f32, per-head K and V never
+    built."""
+
+    def __init__(self, cfg: ModelConfig, run: RunConfig):
+        super().__init__()
+        m, d, H = cfg.mla, cfg.d_model, cfg.n_heads
+        self.cfg = cfg
+        qk = m.nope_head_dim + m.rope_head_dim
+        self.wq_a = nn.Linear(d, m.q_lora_rank, bias=False)
+        self.q_norm = nn.Parameter(torch.ones(m.q_lora_rank))
+        self.wq_b = nn.Linear(m.q_lora_rank, H * qk, bias=False)
+        self.wkv_a = nn.Linear(d, m.kv_lora_rank + m.rope_head_dim,
+                               bias=False)
+        self.kv_norm = nn.Parameter(torch.ones(m.kv_lora_rank))
+        self.wk_b = nn.Linear(m.kv_lora_rank, H * m.nope_head_dim,
+                              bias=False)
+        self.wv_b = nn.Linear(m.kv_lora_rank, H * m.v_head_dim, bias=False)
+        self.wo = nn.Linear(H * m.v_head_dim, d, bias=False)
+        self.core = AttentionCore(run.attention_impl, None)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                cache: Optional[MLACache] = None, cache_pos: int = 0):
+        """x (B, T, d), positions (B, T) int32; with a cache (one layer's
+        :class:`MLACache`) the new entries go to slots ``cache_pos``
+        onward.  Returns ``(out (B, T, d), cache)``."""
+        cfg, m = self.cfg, self.cfg.mla
+        B, T, _ = x.shape
+        H, dtype = cfg.n_heads, x.dtype
+        nope, rope, L = m.nope_head_dim, m.rope_head_dim, m.kv_lora_rank
+        q = rms_norm(_linear(self.wq_a, x), self.q_norm, cfg.norm_eps)
+        q = _linear(self.wq_b, q).reshape(B, T, H, nope + rope)
+        q_nope, q_rope = q.split([nope, rope], dim=-1)
+        cos, sin = rope_tables(positions, rope, cfg.rope_theta)
+        q_rope = apply_rope(q_rope, cos, sin)
+        ckv, krope = _linear(self.wkv_a, x).split([L, rope], dim=-1)
+        ckv = rms_norm(ckv, self.kv_norm, cfg.norm_eps)
+        krope = apply_rope(krope[:, :, None, :], cos, sin)[:, :, 0, :]
+
+        kv_pos = positions
+        if cache is not None:
+            S = cache.ckv.shape[1]
+            if cache_pos + T > S:
+                raise ValueError(f"{T} new entries at slot {cache_pos} "
+                                 f"overflow a cache of {S} slots")
+            cache.ckv[:, cache_pos:cache_pos + T] = ckv
+            cache.krope[:, cache_pos:cache_pos + T] = krope
+            cache.pos[:, cache_pos:cache_pos + T] = positions
+            ckv, krope = cache.ckv.to(dtype), cache.krope.to(dtype)
+            kv_pos = cache.pos
+        S = ckv.shape[1]
+        wk_b = self.wk_b.weight.T.to(dtype).reshape(L, H, nope)
+        wv_b = self.wv_b.weight.T.to(dtype).reshape(L, H, m.v_head_dim)
+        if T == 1 and S > 1:
+            scale = 1.0 / math.sqrt(nope + rope)
+            q_abs = torch.einsum("bthn,lhn->bthl", q_nope, wk_b)
+            s = torch.einsum("bthl,bsl->bhts", q_abs.float(), ckv.float())
+            s = s + torch.einsum("bthr,bsr->bhts", q_rope.float(),
+                                 krope.float())
+            s = s * scale + _bias(positions, kv_pos, None)[:, None]
+            w = torch.softmax(s, dim=-1)
+            ctx = torch.einsum("bhts,bsl->bthl", w.to(dtype).float(),
+                               ckv.float())
+            out = torch.einsum("bthl,lhv->bthv", ctx.to(dtype).float(),
+                               wv_b.float()).to(dtype)
+        else:
+            k_nope = torch.einsum("bsl,lhn->bshn", ckv, wk_b)
+            v = torch.einsum("bsl,lhv->bshv", ckv, wv_b)
+            k = torch.cat([k_nope, krope[:, :, None, :].expand(
+                B, S, H, rope)], dim=-1)
+            qq = torch.cat([q_nope, q_rope], dim=-1)
+            # V zero-padded to the qk head dim for the shared core, then
+            # sliced back
+            v = F.pad(v, (0, nope + rope - m.v_head_dim))
+            out = self.core(qq, k, v, positions, kv_pos)[..., :m.v_head_dim]
+        out = out.reshape(B, T, H * m.v_head_dim)
+        return _linear(self.wo, out), cache

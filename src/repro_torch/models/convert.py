@@ -13,15 +13,18 @@ from .transformer import Transformer, model_defs
 
 _BIASES = {"attn/bq": "attn.wq.bias", "attn/bk": "attn.wk.bias",
            "attn/bv": "attn.wv.bias"}
+#: 2-D per-block weights kept in the JAX layout (parameters, not Linears)
+_AS_IS = ("moe/router",)
 
 
-def _layer_key(name: str, per_layer_ndim: int) -> "tuple[str, bool]":
-    """Module key of one layer's slice of ``layers/<name>``, and whether it
-    is transposed (a 2-D weight becomes an ``nn.Linear`` weight)."""
+def _block_key(name: str, per_block_ndim: int) -> "tuple[str, bool]":
+    """Module key of one block's ``<name>`` (a ``layers/`` slice or a
+    ``dense{i}/`` leaf), and whether it is transposed (a 2-D weight
+    becomes an ``nn.Linear`` weight)."""
     if name in _BIASES:
         return _BIASES[name], False
     key = name.replace("/", ".")
-    if per_layer_ndim == 2:
+    if per_block_ndim == 2 and name not in _AS_IS:
         return key + ".weight", True
     return key, False
 
@@ -43,16 +46,22 @@ def from_jax_params(cfg: ModelConfig,
     * ``unembed`` (d, V) -> ``unembed.weight`` (V, d), transposed;
     * ``final_ln`` (d,) -> ``final_ln``;
     * every ``layers/<name>`` stack (L, ...) is split along its first dim,
-      slice i going to ``layers[i]``:
-      - ``ln1``, ``ln2`` (d,) -> ``layers[i].ln1``, ``.ln2``;
-      - ``attn/wq``, ``attn/wk``, ``attn/wv``, ``attn/wo`` and
-        ``mlp/w_gate``, ``mlp/w_up``, ``mlp/w_down`` (in, out) ->
-        ``layers[i].attn.wq.weight`` ... (out, in), transposed to
-        ``nn.Linear``'s layout;
-      - ``attn/bq``, ``attn/bk``, ``attn/bv`` (out,) ->
-        ``layers[i].attn.wq.bias``, ``.wk.bias``, ``.wv.bias``;
-      - ``attn/q_norm``, ``attn/k_norm`` (hd,) -> ``layers[i].attn.q_norm``,
-        ``.k_norm``.
+      slice i going to ``layers[i]``, and every ``dense{i}/<name>`` leaf
+      goes to ``dense[i]`` (deepseek-v2's leading dense block):
+      - ``ln1``, ``ln2`` (d,) -> ``.ln1``, ``.ln2``;
+      - 2-D weights (in, out) -> the ``nn.Linear`` of the same path, its
+        ``.weight`` (out, in) transposed: ``attn/wq``, ``attn/wk``,
+        ``attn/wv``, ``attn/wo``; MLA's ``attn/wq_a``, ``attn/wq_b``,
+        ``attn/wkv_a``, ``attn/wk_b``, ``attn/wv_b``, ``attn/wo``;
+        ``mlp/w_gate``, ``mlp/w_up``, ``mlp/w_down`` and the shared
+        experts' ``moe/shared/w_gate`` ...;
+      - ``attn/bq``, ``attn/bk``, ``attn/bv`` (out,) -> ``.attn.wq.bias``,
+        ``.wk.bias``, ``.wv.bias``;
+      - 1-D norms (``attn/q_norm``, ``attn/k_norm``, MLA's
+        ``attn/kv_norm``) as they are;
+      - ``moe/router`` (d, E) and the expert stacks ``moe/w_gate``,
+        ``moe/w_up`` (E, d, f), ``moe/w_down`` (E, f, d) as they are, in
+        the JAX layout.
 
     The splits and transposes are views of the converted arrays: no weight
     is copied a second time (a full-width bf16 model takes its 8.8 GB
@@ -78,12 +87,16 @@ def from_jax_params(cfg: ModelConfig,
     sd = {"embed.weight": t["embed"], "final_ln": t["final_ln"]}
     if not cfg.tie_embeddings:
         sd["unembed.weight"] = t["unembed"].T
-    for key, stack in t.items():
-        if not key.startswith("layers/"):
-            continue
-        name, transpose = _layer_key(key[len("layers/"):], stack.dim() - 1)
-        for i in range(cfg.n_layers):
-            sd[f"layers.{i}.{name}"] = stack[i].T if transpose else stack[i]
+    for key, val in t.items():
+        head, _, name = key.partition("/")
+        if head == "layers":
+            mod, transpose = _block_key(name, val.dim() - 1)
+            for i in range(val.shape[0]):
+                sd[f"layers.{i}.{mod}"] = val[i].T if transpose else val[i]
+        elif head.startswith("dense"):
+            mod, transpose = _block_key(name, val.dim())
+            sd[f"dense.{head[len('dense'):]}.{mod}"] = (val.T if transpose
+                                                       else val)
     with torch.device("meta"):
         model = Transformer(cfg, run)
     model.load_state_dict(sd, strict=True, assign=True)

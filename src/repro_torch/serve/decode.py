@@ -3,8 +3,10 @@
 Counterpart of :mod:`repro.serve.decode`, with the same contracts; the
 weights are the :class:`~repro_torch.models.transformer.Transformer`
 passed where JAX passes ``params``.  Each step runs without autograd.
-The cache is updated in place and also returned, as JAX returns its new
-cache.
+The cache (the tree :func:`~repro_torch.models.transformer.init_cache`
+makes) is updated in place and also returned, as JAX returns its new
+cache.  The MoE loss the forward also returns is dropped here, as JAX's
+steps drop it; ``model(tokens, positions, ...)`` gives it.
 """
 from __future__ import annotations
 
@@ -29,30 +31,37 @@ def _arange_positions(B: int, T: int, device) -> torch.Tensor:
 
 
 def make_prefill_step(cfg: ModelConfig, run: RunConfig):
-    """The cacheless prefill step: ``(model, tokens[, positions]) ->
-    logits`` over a (B, T) prompt batch.  Use
-    :func:`make_prefill_cache_step` when decode will follow."""
+    """The cacheless prefill step: ``(model, tokens[, positions,
+    prefix_embeds]) -> logits`` over a (B, T) prompt batch; ``prefix_embeds``
+    (B, P, d) go first, at positions 0..P-1, and the logits are (B, P + T,
+    V).  Use :func:`make_prefill_cache_step` when decode will follow."""
 
     @torch.inference_mode()
     def prefill_step(model: Transformer, tokens: torch.Tensor,
-                     positions: Optional[torch.Tensor] = None):
+                     positions: Optional[torch.Tensor] = None,
+                     prefix_embeds: Optional[torch.Tensor] = None):
         _checked(model, cfg, run)
         if positions is None:
             positions = _arange_positions(*tokens.shape, tokens.device)
-        return model(tokens, positions)[0]
+        return model(tokens, positions, prefix_embeds=prefix_embeds)[0]
 
     return prefill_step
 
 
 def make_prefill_cache_step(cfg: ModelConfig, run: RunConfig):
     """Prefill that also fills the decode cache from slot 0:
-    ``(model, tokens, cache) -> (logits (B, T, V), cache)``."""
+    ``(model, tokens, cache[, prefix_embeds]) -> (logits (B, P + T, V),
+    cache)``.  The prefix fills slots 0..P-1, so decode goes on at
+    ``cache_pos = P + T``."""
 
     @torch.inference_mode()
-    def prefill(model: Transformer, tokens: torch.Tensor, cache):
+    def prefill(model: Transformer, tokens: torch.Tensor, cache,
+                prefix_embeds: Optional[torch.Tensor] = None):
         _checked(model, cfg, run)
         positions = _arange_positions(*tokens.shape, tokens.device)
-        return model(tokens, positions, cache=cache, cache_pos=0)
+        logits, cache, _ = model(tokens, positions, cache=cache, cache_pos=0,
+                                 prefix_embeds=prefix_embeds)
+        return logits, cache
 
     return prefill
 
@@ -75,8 +84,8 @@ def make_serve_step(cfg: ModelConfig, run: RunConfig, *,
         B = tokens.shape[0]
         positions = torch.full((B, 1), cache_pos, dtype=torch.int32,
                                device=tokens.device)
-        logits, cache = model(tokens, positions, cache=cache,
-                              cache_pos=cache_pos)
+        logits, cache, _ = model(tokens, positions, cache=cache,
+                                 cache_pos=cache_pos)
         logits = logits[:, -1]
         if greedy or generator is None:
             nxt = logits.argmax(-1)

@@ -67,6 +67,10 @@ def _err(a, b):
     (2, 128, 4, 4, 64, 32, 48, torch.float32),
     (1, 128, 4, 1, 128, 64, None, torch.float32),
     (2, 64, 2, 2, 64, 64, None, torch.bfloat16),
+    # MLA's qk head dims (nope + rope): 24 at smoke size, 192 at full width
+    (2, 64, 4, 4, 24, 32, None, torch.float32),
+    (1, 128, 2, 2, 192, 64, None, torch.float32),
+    (1, 64, 2, 2, 192, 32, None, torch.bfloat16),
 ])
 def test_plain_version_matches_pallas_and_oracle(B, T, H, Hkv, D, chunk, win,
                                                  dtype):
@@ -198,6 +202,20 @@ def _window_8():
     return _inputs(2, 300, 300, 4, 2, 128, seed=24), 8
 
 
+def _group(G, D):
+    """G query heads a kv head at head dim D: granite (G 3, D 64) and
+    deepseek-coder (G 7, D 128)."""
+    return lambda: (_inputs(2, 150, 150, 2 * G, 2, D, seed=30 + G), None)
+
+
+def _mla(T, S):
+    """MLA's prefill core: G 1 at head dim 192, one q and one kv tile past
+    a multiple of the 64-key tile, offset queries."""
+    q_pos = np.broadcast_to(np.arange(S - T, S, dtype=np.int32), (2, T))
+    return lambda: (_inputs(2, T, S, 4, 4, 192, seed=40 + T, q_pos=q_pos),
+                    None)
+
+
 def _head_dim(D):
     """Ragged T and S with offset queries at head dim D."""
     q_pos = np.broadcast_to(np.arange(73, 173, dtype=np.int32), (2, 100))
@@ -210,7 +228,10 @@ CUDA_CASES = {
     "square": lambda: (_inputs(2, 256, 256, 8, 2, 128, seed=3), None),
     "edge_tiles": _edge_tiles, "gqa_g1": _gqa(1), "gqa_g8": _gqa(8),
     "single_query": _single_query, "window_8": _window_8,
-    **{f"head_dim_{D}": _head_dim(D) for D in (16, 32, 64, 120, 128)},
+    "gqa_g3_d64": _group(3, 64), "gqa_g7_d128": _group(7, 128),
+    "mla_d192": _mla(129, 193), "mla_d192_square": _mla(256, 256),
+    **{f"head_dim_{D}": _head_dim(D) for D in (16, 24, 32, 64, 120, 128,
+                                               192)},
 }
 
 

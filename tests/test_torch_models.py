@@ -1,12 +1,19 @@
-"""The port's qwen3-4b serving path against the JAX package at smoke size
-(``qwen3-4b:smoke``: 2 layers, d 64, 4 heads, 2 KV heads, hd 16).
+"""The port's serving path against the JAX package at smoke size: first
+qwen3-4b (``qwen3-4b:smoke``: 2 layers, d 64, 4 heads, 2 KV heads, hd 16)
+layer by layer, then every other attention architecture (dense, vlm,
+audio, MoE, MLA) end to end at its own ``:smoke`` config.
 
 Both packages run the same weights (JAX's ``init_model``, handed over as
 numpy through :func:`repro_torch.models.convert.from_jax_params`) on the
-same numpy-drawn tokens and activations, in float32 unless a test says
-otherwise.  Tolerances: 1e-4 on logits (f32 einsums summed in another
-order), 1e-3 where decode is compared with the full forward (as
-``tests/test_models.py`` does in JAX), 2e-2 in bf16 (the kernel tests').
+same numpy-drawn tokens, prefix embeddings and activations, in float32
+unless a test says otherwise.  Tolerances: 1e-4 on logits (f32 einsums
+summed in another order), 1e-5 on cache leaves, 1e-6 on the MoE loss,
+1e-3 where decode is compared with the full forward (as
+``tests/test_models.py`` does in JAX), 2e-2 in bf16 (the kernel tests');
+tokens and cache positions exactly.  The port's ``"flash"`` runs the
+kernel's plain version on the CPU; it is held to JAX's ``"dense"`` and
+``"chunked_causal"`` (whose path is known: JAX's ``"pallas"`` falls back
+to the XLA twin on any kernel error).
 """
 import dataclasses
 
@@ -25,8 +32,8 @@ from repro.models import transformer as jtfm
 from repro.serve.decode import make_prefill_cache_step as jax_prefill
 from repro.serve.decode import make_prefill_step as jax_prefill_step
 from repro.serve.decode import make_serve_step as jax_serve
-from repro_torch.config import (MLAConfig, MoEConfig, RunConfig, RWKVConfig,
-                                SSMConfig, get_config)
+from repro_torch.config import RunConfig, RWKVConfig, SSMConfig, get_config
+from repro_torch.config import list_configs as port_list_configs
 from repro_torch.models import layers as tlayers
 from repro_torch.models import transformer as ttfm
 from repro_torch.models.attention import AttnCache
@@ -82,18 +89,16 @@ def test_configs_match_jax(cfg):
                                                                151936)
 
 
-@pytest.mark.parametrize("arch", sorted(set(jax_list_configs()) - {ARCH}))
+@pytest.mark.parametrize("arch", sorted(set(jax_list_configs())
+                                        - set(port_list_configs())))
 def test_unported_arch_raises_key_error(arch):
     with pytest.raises(KeyError, match="qwen3-4b"):
         get_config(arch)
 
 
 @pytest.mark.parametrize("field,value", [
-    ("moe", MoEConfig(n_experts=4, top_k=2, d_ff_expert=32)),
-    ("mla", MLAConfig()),
     ("ssm", SSMConfig()),
     ("rwkv", RWKVConfig()),
-    ("n_prefix_embeds", 4),
 ])
 def test_unported_families_raise(cfg, field, value):
     other = dataclasses.replace(cfg, **{field: value})
@@ -195,7 +200,7 @@ def test_gqa_matches_jax(cfg, jax_params, impl, dtype, with_cache):
     jcache = tcache = None
     if with_cache:
         full = ttfm.init_cache(cfg, B, MAX_SEQ, dtype=torch.float32,
-                               device="cpu")
+                               device="cpu")["layers"]
         tcache = AttnCache(full.k[0], full.v[0], full.pos[0])
         jcache = jattn.AttnCache(*(jnp.asarray(t.numpy()) for t in tcache))
     want, jnew = jattn.gqa_apply(jcfg, jrun, jp, "attn/", jx,
@@ -234,7 +239,7 @@ def _port_prefill_and_decode(cfg, jax_params, run, toks, steps):
                             device="cpu")
     logits, cache = make_prefill_cache_step(cfg, run)(
         m, torch.from_numpy(toks), cache)
-    prefill = (logits.numpy(), [t.clone().numpy() for t in cache])
+    prefill = (logits.numpy(), [t.clone().numpy() for t in cache["layers"]])
     serve = make_serve_step(cfg, run)
     tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
     out = []
@@ -364,3 +369,241 @@ def test_default_device_raises_without_cuda(cfg, jax_params):
         ttfm.init_cache(cfg, B, MAX_SEQ)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         from_jax_params(cfg, jax_params)
+
+
+# ----------------------------------------------------------------------------
+# every other attention architecture, end to end at its :smoke config
+# ----------------------------------------------------------------------------
+
+FAMILIES = ("deepseek-coder-33b", "deepseek-v2-236b", "granite-moe-3b-a800m",
+            "h2o-danube-3-4b", "musicgen-large", "pixtral-12b", "qwen1.5-4b")
+MOE_FAMILIES = ("deepseek-v2-236b", "granite-moe-3b-a800m")
+# port impl -> the JAX impls it is held to (both have a known path)
+HELD_TO = {"flash": ("chunked_causal", "dense"), "dense": ("dense",)}
+
+
+@pytest.fixture(scope="module")
+def family():
+    """arch -> (port cfg, JAX cfg, numpy params, numpy prefix or None);
+    qwen1.5's qkv biases drawn nonzero (JAX initialises them to 0)."""
+    out = {}
+    for i, arch in enumerate(FAMILIES):
+        jcfg = jax_get_config(arch, smoke=True)
+        params = {k: np.asarray(v) for k, v in jtfm.init_model(
+            jcfg, jax.random.PRNGKey(10 + i)).items()}
+        rng = np.random.default_rng(20 + i)
+        for k in params:
+            if k.split("/")[-1] in ("bq", "bk", "bv"):
+                params[k] = rng.standard_normal(params[k].shape,
+                                                dtype=np.float32)
+        prefix = None
+        if jcfg.n_prefix_embeds:
+            prefix = rng.standard_normal(
+                (B, jcfg.n_prefix_embeds, jcfg.d_model), dtype=np.float32)
+        out[arch] = (get_config(arch, smoke=True), jcfg, params, prefix)
+    return out
+
+
+def _jrun(impl):
+    return JaxRun(attention_impl=impl, attention_chunk=8, remat="none",
+                  compute_dtype="float32")
+
+
+def _jparams(params):
+    return {k: jnp.asarray(v) for k, v in params.items()}
+
+
+def _opt(x, to):
+    return None if x is None else to(x)
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_config_and_defs_match_jax(arch):
+    for smoke in (False, True):
+        assert (dataclasses.asdict(get_config(arch, smoke=smoke))
+                == dataclasses.asdict(jax_get_config(arch, smoke=smoke)))
+    for smoke in (False, True):
+        want = jtfm.model_defs(jax_get_config(arch, smoke=smoke))
+        got = ttfm.model_defs(get_config(arch, smoke=smoke))
+        assert {k: d.shape for k, d in got.items()} == {
+            k: d.shape for k, d in want.items()}
+
+
+def _module_leaf(m, key):
+    """The module's tensor for one JAX key, read back through the JAX
+    layout: ``layers/`` stacks re-stacked, 2-D Linear weights transposed
+    back, biases from ``.bias``, the router and expert stacks as they
+    are."""
+    head, _, name = key.partition("/")
+    if head in ("embed", "final_ln"):
+        return {"embed": m.embed.weight, "final_ln": m.final_ln}[head]
+    if head == "unembed":
+        return m.unembed.weight.T
+
+    def leaf(prefix):
+        path = prefix + "." + name.replace("/", ".")
+        if name.split("/")[-1] in ("bq", "bk", "bv"):
+            return m.get_parameter(path.replace(".b", ".w") + ".bias")
+        try:
+            return m.get_parameter(path)
+        except AttributeError:
+            return m.get_parameter(path + ".weight").T
+
+    if head == "layers":
+        return torch.stack([leaf(f"layers.{i}") for i in range(len(m.layers))])
+    return leaf(f"dense.{int(head[len('dense'):])}")
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_from_jax_params_round_trip(family, arch):
+    cfg, _, params, _ = family[arch]
+    m = from_jax_params(cfg, params, run=RunConfig(compute_dtype="float32"),
+                        device="cpu")
+    for k, v in params.items():
+        got = _module_leaf(m, k)
+        assert tuple(got.shape) == v.shape, k
+        np.testing.assert_array_equal(got.numpy(), v, err_msg=k)
+    assert sum(p.numel() for p in m.parameters()) == sum(
+        v.size for v in params.values())
+    assert len(m.blocks()) == cfg.n_layers
+
+
+@pytest.mark.parametrize("impl", sorted(HELD_TO))
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_prefill_matches_jax(family, arch, impl):
+    """Cacheless prefill logits (prefix embeddings included) within 1e-4 of
+    JAX's "dense" and "chunked_causal"; the forward's MoE loss within
+    1e-6 of JAX's."""
+    cfg, jcfg, params, prefix = family[arch]
+    run = RunConfig(attention_impl=impl, compute_dtype="float32")
+    m = from_jax_params(cfg, params, run=run, device="cpu")
+    toks = _tokens(cfg, seed=31)
+    pos = np.tile(np.arange(T, dtype=np.int32), (B, 1))
+    got = make_prefill_step(cfg, run)(m, torch.from_numpy(toks), None,
+                                      _opt(prefix, torch.from_numpy))
+    P = cfg.n_prefix_embeds
+    assert got.shape == (B, P + T, cfg.vocab_size)
+    with torch.inference_mode():
+        _, _, aux = m(torch.from_numpy(toks), torch.from_numpy(pos),
+                      prefix_embeds=_opt(prefix, torch.from_numpy))
+    for jimpl in HELD_TO[impl]:
+        jp = _jparams(params)
+        want = jax_prefill_step(jcfg, _jrun(jimpl))(
+            jp, jnp.asarray(toks), None, _opt(prefix, jnp.asarray))
+        assert _err(got, want) <= 1e-4, jimpl
+        _, _, jaux = jtfm.make_forward(jcfg, _jrun(jimpl))(
+            jp, jnp.asarray(toks), jnp.asarray(pos),
+            _opt(prefix, jnp.asarray))
+        assert abs(float(aux) - float(jaux)) <= 1e-6, jimpl
+    assert (float(aux) > 0) == (arch in MOE_FAMILIES)
+
+
+def _cache_leaves(cache):
+    """{(subtree, field): numpy} of a port cache tree."""
+    return {(k, f): t.clone().numpy() for k, c in cache.items()
+            for f, t in zip(c._fields, c)}
+
+
+def _jax_cache_leaves(cache):
+    return {(path[0].key, path[1].name): np.asarray(v)
+            for path, v in jax.tree_util.tree_flatten_with_path(cache)[0]}
+
+
+@pytest.mark.parametrize("impl", sorted(HELD_TO))
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_prefill_and_decode_match_jax(family, arch, impl):
+    """Prefill into the cache, then 8 greedy decode steps, against JAX's
+    (its "dense", or "chunked_causal" for the flash kernel): prefill
+    logits within 1e-4, the cache tree leaf by leaf (positions exactly,
+    k/v or MLA's ckv/krope within 1e-5), every step's tokens exactly and
+    logits within 1e-4.  danube3's 16-slot window ring wraps during
+    decode; pixtral's prefix fills the first slots."""
+    cfg, jcfg, params, prefix = family[arch]
+    run = RunConfig(attention_impl=impl, compute_dtype="float32")
+    jrun = _jrun(HELD_TO[impl][0])
+    P, steps = cfg.n_prefix_embeds, 8
+    toks = _tokens(cfg, seed=32)
+    jp = _jparams(params)
+    jcache = jax.tree.map(lambda a: a.astype(jnp.float32)
+                          if a.dtype == jnp.bfloat16 else a,
+                          jtfm.init_cache(jcfg, B, MAX_SEQ + P))
+    jl, jcache = jax.jit(jax_prefill(jcfg, jrun))(
+        jp, jnp.asarray(toks), jcache, _opt(prefix, jnp.asarray))
+    m = from_jax_params(cfg, params, run=run, device="cpu")
+    cache = ttfm.init_cache(cfg, B, MAX_SEQ + P, dtype=torch.float32,
+                            device="cpu")
+    tl, cache = make_prefill_cache_step(cfg, run)(
+        m, torch.from_numpy(toks), cache, _opt(prefix, torch.from_numpy))
+    assert _err(tl, jl) <= 1e-4
+
+    def same_cache():
+        want, got = _jax_cache_leaves(jcache), _cache_leaves(cache)
+        assert set(got) == set(want)
+        for key, w in want.items():
+            assert got[key].shape == w.shape, key
+            if key[1] == "pos":
+                np.testing.assert_array_equal(got[key], w, err_msg=str(key))
+            else:
+                assert _err(got[key], w) <= 1e-5, key
+
+    same_cache()
+    jserve, serve = jax.jit(jax_serve(jcfg, jrun)), make_serve_step(cfg, run)
+    jtok = jnp.argmax(jl[:, -1], -1).astype(jnp.int32)[:, None]
+    tok = tl[:, -1].argmax(-1).to(torch.int32)[:, None]
+    for i in range(steps):
+        jtok, jcache, jlg = jserve(jp, jcache, jtok, jnp.int32(P + T + i))
+        tok, cache, lg = serve(m, cache, tok, P + T + i)
+        np.testing.assert_array_equal(tok.numpy(), np.asarray(jtok))
+        assert _err(lg, jlg) <= 1e-4, i
+    same_cache()
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_decode_equals_full_forward(family, arch):
+    """Token-by-token decode through the cache (MLA: the absorbed path)
+    gives the full forward's logits at every position (f32, 1e-3); with
+    a prefix, the prefix is prefilled first and decode goes on from
+    slot P.  MoE gets ample capacity, as in ``tests/test_models.py``: a
+    capacity buffer drops other pairs for 2 tokens than for 32."""
+    cfg, _, params, prefix = family[arch]
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=16.0))
+    run = RunConfig(attention_impl="flash", compute_dtype="float32")
+    m = from_jax_params(cfg, params, run=run, device="cpu")
+    toks = torch.from_numpy(_tokens(cfg, seed=33))
+    pre = _opt(prefix, torch.from_numpy)
+    P = cfg.n_prefix_embeds
+    full = make_prefill_step(cfg, run)(m, toks, None, pre)[:, P:]
+    cache = ttfm.init_cache(cfg, B, P + T, dtype=torch.float32,
+                            device="cpu")
+    serve = make_serve_step(cfg, run)
+    outs = []
+    start = 1 if P else 0
+    if P:  # the prefix and the first token, then one token a step
+        lg, cache = make_prefill_cache_step(cfg, run)(m, toks[:, :1], cache,
+                                                       pre)
+        outs.append(lg[:, -1])
+    for t in range(start, T):
+        _, cache, lg = serve(m, cache, toks[:, t:t + 1], P + t)
+        outs.append(lg)
+    assert float((full - torch.stack(outs, 1)).abs().max()) < 1e-3
+
+
+@pytest.mark.parametrize("arch", MOE_FAMILIES)
+@pytest.mark.parametrize("knobs", [dict(moe_groups=2),
+                                   dict(moe_dense_eval=True)],
+                         ids=["groups2", "dense_eval"])
+def test_family_moe_run_knobs_match_jax(family, arch, knobs):
+    """RunConfig's MoE knobs reach every MoE block: cacheless prefill under
+    grouped dispatch and dense evaluation within 1e-4 of JAX's."""
+    cfg, jcfg, params, _ = family[arch]
+    run = RunConfig(attention_impl="dense", compute_dtype="float32", **knobs)
+    jrun = JaxRun(attention_impl="dense", remat="none",
+                  compute_dtype="float32", **knobs)
+    toks = _tokens(cfg, seed=34)
+    got = make_prefill_step(cfg, run)(
+        from_jax_params(cfg, params, run=run, device="cpu"),
+        torch.from_numpy(toks))
+    want = jax_prefill_step(jcfg, jrun)(_jparams(params), jnp.asarray(toks))
+    assert _err(got, want) <= 1e-4
