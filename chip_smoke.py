@@ -155,27 +155,36 @@ script exits non-zero and prints no result.  Phases:
 7. serve_f32 — the same width at 2 layers in f32: prefill logits of the
              flash path against the dense path (<= 1e-3), and decode
              logits against the full forward at every position (<= 1e-3).
-   serve_families — every other attention architecture at full width,
-             bf16, one model on the card at a time (``FAMILIES``):
+   serve_families — every other architecture at full width, bf16, one
+             model on the card at a time (``FAMILIES``):
              granite-moe-3b-a800m, qwen1.5-4b, h2o-danube-3-4b,
              musicgen-large, pixtral-12b (1024 prefix embeddings),
-             deepseek-coder-33b (all 62 layers) and deepseek-v2-236b (1
-             dense + 3 MoE layers); a cell whose weights do not fit the
-             card fails.  Each: a
-             checked prefill holding every flash launch to the plain
-             version (scaled < 2e-2), then a timed prefill into the cache
-             and greedy decode, one flash launch per attention layer a
-             prefill and none in decode; prefill ms, decode ms per token,
-             peak memory, weight bytes; h2o-danube3 also one cacheless B 1
-             x 8192 prefill (the window on the kernel); granite and
-             deepseek-v2 profiled.
-   serve_f32_families — 2 layers in f32 at full width: flash against
-             dense prefill logits for granite, pixtral and deepseek-v2
-             (the dense run replays the flash run's MoE routing; at most
-             1 % of the choices, or 2, may differ), decode
-             (MLA: absorbed) against the full forward (<= 1e-3 each); and
+             deepseek-coder-33b (all 62 layers), deepseek-v2-236b (1
+             dense + 3 MoE layers), zamba2-1.2b (38 layers: 6 super-blocks
+             of 6 Mamba2 blocks and the one shared attention block, then 2
+             tail blocks) and rwkv6-3b (32 layers); a cell whose weights
+             do not fit the card fails.  Each: a checked prefill holding
+             every flash launch to the plain version (scaled < 2e-2), then
+             a timed prefill into a fresh cache and greedy decode, one
+             flash launch per attention call a prefill (zamba2 6, rwkv6 0)
+             and none in decode; prefill ms, decode ms per token, peak
+             memory, weight bytes; h2o-danube3 also one cacheless B 1 x
+             8192 prefill (the window on the kernel); granite and
+             deepseek-v2 prefill, zamba2 and rwkv6 prefill and decode
+             profiled, the scans under labels.
+   serve_f32_families — in f32 at full width: flash against dense
+             prefill logits for granite, pixtral and deepseek-v2 (2
+             layers; the dense run replays the flash run's MoE routing; at
+             most 1 % of the choices, or 2, may differ) and zamba2 (8
+             layers: one super-block and 2 tail blocks), decode (MLA:
+             absorbed; zamba2 and rwkv6 (2 layers): the one-step
+             recurrences) against the full forward (<= 1e-3 each);
              h2o-danube3's 4096-slot ring across its wrap, every decode
-             step's logits equal to the cacheless forward's.
+             step's logits equal to the cacheless forward's; one layer's
+             ``ssd_chunked`` (zamba2) and ``wkv_chunked`` (rwkv6) at full
+             width, B 4 x 2000 tokens (a short last chunk), against the
+             step-by-step recurrence (<= 1e-4 of its largest magnitude),
+             both timed.
 8. the kernels line (census_csr's row adds its launches in the fused,
    fleet, session, dynamic, reorder, faults, partition, distributed (per
    rank) and patents phases; flash_attention's its launches per prefill
@@ -214,11 +223,14 @@ F32_LAYERS = 2
 DECODE_T = 64
 # f32 scores per call of the plain flash version in a check (1 GiB)
 PLAIN_CHUNK_ELEMS = 2**28
-# the other attention families at full width, one cell each: arch ->
-# batch, prompt, new tokens, depth; the prefix of a vlm is its config's
-# n_prefix_embeds.  Every depth is the config's own but deepseek-v2's,
-# which keeps 1 dense + 3 MoE blocks (60 layers would be 472 GB).  A cell
-# whose bf16 weights do not fit the free memory fails the script.
+# the other families at full width, one cell each: arch -> batch, prompt,
+# new tokens, depth and, where it is not one per layer, the flash launches
+# a prefill makes (zamba2's one shared attention block runs once per
+# super-block: 6 at 38 layers; rwkv6 has no attention); the prefix of a vlm
+# is its config's n_prefix_embeds.  Every depth is the config's own but
+# deepseek-v2's, which keeps 1 dense + 3 MoE blocks (60 layers would be
+# 472 GB).  A cell whose bf16 weights do not fit the free memory fails the
+# script.
 FAMILIES = {
     "granite-moe-3b-a800m": dict(batch=4, prompt=2048, new=32, layers=32),
     "qwen1.5-4b": dict(batch=4, prompt=2048, new=16, layers=40),
@@ -227,12 +239,25 @@ FAMILIES = {
     "pixtral-12b": dict(batch=2, prompt=1024, new=16, layers=40),
     "deepseek-coder-33b": dict(batch=1, prompt=2048, new=8, layers=62),
     "deepseek-v2-236b": dict(batch=4, prompt=2048, new=16, layers=4),
+    "zamba2-1.2b": dict(batch=4, prompt=2048, new=16, layers=38, flash=6),
+    "rwkv6-3b": dict(batch=4, prompt=2048, new=16, layers=32, flash=0),
 }
-PROFILED = ("granite-moe-3b-a800m", "deepseek-v2-236b")
-# the f32 families check: (arch, batch, text tokens, layers)
-F32_FAMILIES = (("granite-moe-3b-a800m", 1, 512, 2),
-                ("pixtral-12b", 2, 512, 2),
-                ("deepseek-v2-236b", 1, 512, 2))
+# arch -> the steps run once more under torch.profiler
+PROFILED = {"granite-moe-3b-a800m": ("prefill",),
+            "deepseek-v2-236b": ("prefill",),
+            "zamba2-1.2b": ("prefill", "decode"),
+            "rwkv6-3b": ("prefill", "decode")}
+# the f32 families check: (arch, batch, text tokens, layers, flash launches
+# a prefill makes); zamba2 at 8 layers is one super-block and 2 tail blocks
+F32_FAMILIES = (("granite-moe-3b-a800m", 1, 512, 2, 2),
+                ("pixtral-12b", 2, 512, 2, 2),
+                ("deepseek-v2-236b", 1, 512, 2, 2),
+                ("zamba2-1.2b", 1, 512, 8, 1),
+                ("rwkv6-3b", 1, 512, 2, 0))
+# the scans at full width against their step-by-step recurrence: (arch,
+# batch, tokens); 2000 is not a whole number of chunks (128 and 32), so the
+# last chunk is short
+SCAN_CHECKS = (("zamba2-1.2b", 4, 2000), ("rwkv6-3b", 4, 2000))
 # h2o-danube3's ring across its wrap: prefill RING_PREFILL tokens into the
 # 4096-slot window ring, then RING_STEPS decode steps past slot 4096
 RING_PREFILL, RING_STEPS = 4064, 96
@@ -688,7 +713,9 @@ def flash_window_timing(torch, dev):
 def device_split(torch, fn):
     """Run ``fn`` once under torch.profiler: wall time, device busy time,
     the device's idle share, the kernels that take the most time and the
-    host ops with the most host time of their own."""
+    host ops with the most host time of their own; for each
+    ``record_function`` label ``group:<name>`` opened inside ``fn``, the
+    device time of the kernels under it and its host time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -697,22 +724,56 @@ def device_split(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    # a label's device-side span is a user annotation, not a kernel
     on_card = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                      for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
-                     reverse=True)
+                      for e in events if e.device_type == cuda
+                      and not e.is_user_annotation), reverse=True)
     busy_ms = sum(ms for ms, _, _ in on_card)
     on_host = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key)
-                      for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CPU),
+                      for e in events if e.device_type == cpu),
                      reverse=True)
+    groups = {e.key[6:]: dict(device_ms=e.device_time_total / 1e3,
+                              host_ms=e.cpu_time_total / 1e3, calls=e.count)
+              for e in events
+              if e.key.startswith("group:") and e.device_type == cpu}
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
                 device_idle_share=1 - busy_ms / wall_ms,
                 kernel_launches=sum(c for _, c, _ in on_card),
+                groups=groups,
                 top=[dict(ms=ms, count=c, kernel=k[:100])
                      for ms, c, k in on_card[:15]],
                 host_top=[dict(ms=ms, count=c, op=k[:60])
                           for ms, c, k in on_host[:10]])
+
+
+@contextlib.contextmanager
+def labelled_scans():
+    """Run the recurrent families' scans under ``record_function`` labels
+    (``group:ssd_chunked``, ``group:ssd_step``, ``group:wkv_chunked``,
+    ``group:wkv_recurrent``) for :func:`device_split`, and undo.  The
+    blocks look the scans up as globals of their modules on every call."""
+    from torch.profiler import record_function
+
+    from repro_torch.models import rwkv, ssm
+
+    def label(name, fn):
+        def wrapped(*args, **kwargs):
+            with record_function(f"group:{name}"):
+                return fn(*args, **kwargs)
+        return wrapped
+
+    names = ((ssm, "ssd_chunked"), (ssm, "ssd_step"), (rwkv, "wkv_chunked"),
+             (rwkv, "wkv_recurrent"))
+    saved = [getattr(mod, name) for mod, name in names]
+    for (mod, name), fn in zip(names, saved):
+        setattr(mod, name, label(name, fn))
+    try:
+        yield
+    finally:
+        for (mod, name), fn in zip(names, saved):
+            setattr(mod, name, fn)
 
 
 def serve_phase(torch, dev):
@@ -805,12 +866,33 @@ def family_config(torch, arch, spec):
     return cfg, cut
 
 
+def attn_slots(cache):
+    """The positions of a cache tree's attention slots (the stacked blocks'
+    or the hybrid's shared block's, leading dim first), None for RWKV."""
+    for key in ("layers", "attn"):
+        if key in cache:
+            return cache[key].pos
+    return None
+
+
+def recurrent_leaves(cache):
+    """The recurrent leaves of a cache tree (RWKV's states and last rows,
+    the hybrid's Mamba2 conv inputs and states; none for the attention
+    families): a prefill starts from them, so a new prompt needs them
+    zeroed."""
+    if "mamba" in cache:
+        return [*cache["mamba"].values(),
+                *(t for tail in cache["tail"] for t in tail.values())]
+    return [] if "layers" in cache else list(cache.values())
+
+
 def serve_family(torch, dev, arch, spec, *, phase="family", profile=()):
     """One architecture's cell at full width, bf16: a checked prefill
-    (every flash launch held to the plain version on that layer's own
-    inputs), then a timed prefill into the cache and greedy decode (one
-    flash launch per attention layer per prefill, none per decode step),
-    then the ``profile`` steps ("prefill", "decode") under torch.profiler.
+    (every flash launch held to the plain version on that site's own
+    inputs), then a timed prefill into the cache and greedy decode
+    (``spec["flash"]`` launches per prefill, by default one per layer,
+    none per decode step), then the ``profile`` steps ("prefill",
+    "decode") under torch.profiler, the recurrent scans under labels.
     Emits ``{phase}_setup``, ``phase`` and ``{phase}_profile`` lines."""
     from repro_torch.config import RunConfig
     from repro_torch.kernels.flash_attention import flash_attention
@@ -838,10 +920,11 @@ def serve_family(torch, dev, arch, spec, *, phase="family", profile=()):
                              dtype=torch.bfloat16).mul_(0.02)
     cache = init_cache(cfg, B, P + T + N, dtype=torch.bfloat16, device=dev)
     torch.cuda.synchronize()
-    blocks = model.blocks()
-    layers = spec["layers"]  # one flash launch per attention layer
-    check(len(blocks) == layers,
-          f"{arch}: {len(blocks)} attention layers built, want {layers}")
+    blocks, calls = model.blocks(), model.attention_calls()
+    layers, flash = spec["layers"], spec.get("flash", spec["layers"])
+    check(len(blocks) == layers and len(calls) == flash,
+          f"{arch}: {len(blocks)} layers and {len(calls)} attention calls "
+          f"built, want {layers} and {flash}")
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in model.parameters())
     emit(f"{phase}_setup", arch=arch, layers=cfg.n_layers, cut=cut,
@@ -851,25 +934,34 @@ def serve_family(torch, dev, arch, spec, *, phase="family", profile=()):
     prefill = make_prefill_cache_step(cfg, run)
     serve = make_serve_step(cfg, run)
 
+    def fresh_prefill():
+        """A new prompt: the recurrent leaves it would start from zeroed
+        (the attention slots are overwritten)."""
+        for t in recurrent_leaves(cache):
+            t.zero_()
+        return prefill(model, prompts, cache, prefix)
+
     errs = []
 
     def hold_to_plain(core, args, out):
         errs.append(plain_error(torch, out, *args, core.window))
 
-    hooks = [blk.attn.core.register_forward_hook(hold_to_plain)
-             for blk in blocks]
+    # one hook per core: the hybrid's shared core is called once per
+    # super-block
+    hooks = [core.register_forward_hook(hold_to_plain)
+             for core in {id(c): c for c in calls}.values()]
     flash_attention.launches = 0
-    logits, cache = prefill(model, prompts, cache, prefix)
+    logits, cache = fresh_prefill()
     torch.cuda.synchronize()
     for h in hooks:
         h.remove()
-    check(flash_attention.launches == layers == len(errs),
+    check(flash_attention.launches == flash == len(errs),
           f"{arch} checked prefill: {flash_attention.launches} launches, "
-          f"{len(errs)} checked, want {layers}")
-    abs_errs, scaled_errs = zip(*errs)
-    check(max(scaled_errs) < 2e-2,
-          f"{arch} checked prefill: scaled error {max(scaled_errs)} (max "
-          f"abs {max(abs_errs)})")
+          f"{len(errs)} checked, want {flash}")
+    abs_errs, scaled_errs = zip(*errs) if errs else ((), ())
+    worst = max(scaled_errs, default=0.0)
+    check(worst < 2e-2, f"{arch} checked prefill: scaled error {worst} "
+                        f"(max abs {max(abs_errs, default=0.0)})")
     check(logits.shape == (B, P + T, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()), f"{arch} prefill logits")
     del logits
@@ -879,7 +971,7 @@ def serve_family(torch, dev, arch, spec, *, phase="family", profile=()):
     torch.cuda.reset_peak_memory_stats()
     flash_attention.launches = 0
     t0 = time.perf_counter()
-    logits, cache = prefill(model, prompts, cache, prefix)
+    logits, cache = fresh_prefill()
     tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
@@ -895,18 +987,20 @@ def serve_family(torch, dev, arch, spec, *, phase="family", profile=()):
     decode_s = time.perf_counter() - t0
     launches = flash_attention.launches
     tokens = torch.cat(out, 1)
-    check(prefill_launches == launches == layers,
+    check(prefill_launches == launches == flash,
           f"{arch} timed run: {prefill_launches} flash launches in prefill, "
-          f"{launches} in all; want {layers} (decode runs none)")
+          f"{launches} in all; want {flash} (decode runs none)")
     check(tokens.shape == (B, N) and bool(((tokens >= 0)
                                            & (tokens < cfg.vocab_size)).all())
           and bool(torch.isfinite(step_logits).all()), f"{arch} tokens")
-    pos = cache["layers"].pos
+    pos = attn_slots(cache)
     last = P + T + N - 2
-    check(int(pos[0, 0, last % pos.shape[-1]]) == last
-          and (pos.shape[-1] < last + 2
-               or int(pos[0, 0, last + 1]) == SENTINEL),
+    check(pos is None or (int(pos[0, 0, last % pos.shape[-1]]) == last
+                          and (pos.shape[-1] < last + 2
+                               or int(pos[0, 0, last + 1]) == SENTINEL)),
           f"{arch} cache slots after decode")
+    check(all(bool(torch.isfinite(t).all()) for t in recurrent_leaves(cache)),
+          f"{arch} recurrent cache leaves after decode")
     rec = dict(arch=arch, prefill_ms=prefill_s * 1e3,
                prefill_tokens_per_s=B * (P + T) / prefill_s,
                decode_ms_per_token=decode_s * 1e3 / (N - 1),
@@ -914,7 +1008,8 @@ def serve_family(torch, dev, arch, spec, *, phase="family", profile=()):
                flash_launches_per_prefill=prefill_launches,
                max_memory_allocated=torch.cuda.max_memory_allocated(),
                weight_bytes=weight_bytes, layers=cfg.n_layers, cut=cut,
-               max_abs_err=max(abs_errs), max_scaled_err=max(scaled_errs),
+               max_abs_err=max(abs_errs, default=None),
+               max_scaled_err=max(scaled_errs, default=None),
                per_layer_abs_err=abs_errs,
                first_tokens=tokens[:, :8].tolist())
     if arch == "h2o-danube-3-4b":  # the window on the kernel, cacheless
@@ -935,25 +1030,27 @@ def serve_family(torch, dev, arch, spec, *, phase="family", profile=()):
               f"{arch} long prefill: {flash_attention.launches} launches")
         del lg, long
     emit(phase, **rec)
-    steps = dict(prefill=lambda: prefill(model, prompts, cache, prefix),
+    steps = dict(prefill=fresh_prefill,
                  decode=lambda: serve(model, cache, tok, P + T))
     for step in profile:
-        emit(f"{phase}_profile", arch=arch, step=step,
-             **device_split(torch, steps[step]))
+        with labelled_scans():
+            split = device_split(torch, steps[step])
+        emit(f"{phase}_profile", arch=arch, step=step, **split)
     del model, blocks, cache, prompts, prefix, steps
     return rec
 
 
 def serve_families_phase(torch, dev):
-    """Every other attention family's cell (``FAMILIES``), one model on the
-    card at a time.  Returns ``({arch: flash launches per prefill}, the
+    """Every other family's cell (``FAMILIES``), one model on the card at a
+    time.  Returns ``({arch: flash launches per prefill}, the
     largest checked error)``."""
-    recs = {arch: serve_family(torch, dev, arch, spec, profile=(
-        ("prefill",) if arch in PROFILED else ())) for arch, spec in
-        FAMILIES.items()}
+    recs = {arch: serve_family(torch, dev, arch, spec,
+                               profile=PROFILED.get(arch, ()))
+            for arch, spec in FAMILIES.items()}
     return ({arch: r["flash_launches_per_prefill"]
              for arch, r in recs.items()},
-            max(r["max_abs_err"] for r in recs.values()))
+            max(r["max_abs_err"] for r in recs.values()
+                if r["max_abs_err"] is not None))
 
 
 @contextlib.contextmanager
@@ -997,13 +1094,15 @@ def pinned_routing():
         moe_mod.route = original
 
 
-def f32_family_check(torch, dev, arch, B, T, layers):
+def f32_family_check(torch, dev, arch, B, T, layers, flash):
     """``arch`` at full width, ``layers`` layers, f32: prefill logits of the
-    flash path against the dense path (<= 1e-3), then decode logits
-    through the cache (MLA: the absorbed path) against the full forward
-    over DECODE_T tokens (<= 1e-3; MoE with capacity factor 16, so that
-    the 2-token decode batches and the full forward drop no pair, as the
-    JAX package's own decode test does)."""
+    flash path (``flash`` launches) against the dense path (<= 1e-3; not
+    run without an attention call), then decode logits through the cache
+    (MLA: the absorbed path; the recurrent families: their one-step
+    recurrences) against the full forward over DECODE_T tokens (<= 1e-3;
+    MoE with capacity factor 16, so that the 2-token decode batches and
+    the full forward drop no pair, as the JAX package's own decode test
+    does)."""
     from repro_torch.config import RunConfig, get_config
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models.convert import from_jax_params
@@ -1029,12 +1128,14 @@ def f32_family_check(torch, dev, arch, B, T, layers):
     logits = {}
     with pinned_routing() as pin:  # the dense run takes the flash run's
         for impl, run in runs.items():  # expert choices
+            if not flash:  # no attention call: nothing to compare
+                break
             pin["mode"] = "record" if impl == "flash" else "replay"
             flash_attention.launches = 0
             logits[impl] = make_prefill_step(cfg, run)(
                 models[impl], prompts, None, prefix)
             torch.cuda.synchronize()
-            want = layers if impl == "flash" else 0
+            want = flash if impl == "flash" else 0
             check(flash_attention.launches == want,
                   f"f32 {arch} {impl}: {flash_attention.launches} flash "
                   f"launches, want {want}")
@@ -1044,8 +1145,11 @@ def f32_family_check(torch, dev, arch, B, T, layers):
     check(pin["flips"] <= max(2, pin["decisions"] // 100),
           f"f32 {arch}: {pin['flips']} of {pin['decisions']} routing "
           "choices differ between the flash and dense runs")
-    prefill_err = float((logits["flash"] - logits["dense"]).abs().max())
-    check(prefill_err <= 1e-3, f"f32 {arch} flash vs dense: {prefill_err}")
+    prefill_err = None
+    if flash:
+        prefill_err = float((logits["flash"] - logits["dense"]).abs().max())
+        check(prefill_err <= 1e-3,
+              f"f32 {arch} flash vs dense: {prefill_err}")
     del logits, models
 
     if cfg.moe is not None:
@@ -1070,9 +1174,78 @@ def f32_family_check(torch, dev, arch, B, T, layers):
     emit("family_f32", arch=arch, layers=layers, d_model=cfg.d_model,
          batch=B, prefix=P, prompt=T, prefill_flash_vs_dense_max_abs=
          prefill_err, routing_decisions=pin["decisions"],
-         routing_flips_pinned=pin["flips"], decode_tokens=DECODE_T,
-         decode_vs_full_forward_max_abs=decode_err)
+         routing_flips_pinned=pin["flips"], flash_launches=flash,
+         decode_tokens=DECODE_T, decode_vs_full_forward_max_abs=decode_err)
     del model, params, full, cache
+    torch.cuda.empty_cache()
+
+
+def scan_check(torch, dev, arch, B, T):
+    """One layer's chunked scan at ``arch``'s full width on the card, f32
+    (no TF32), against its step-by-step recurrence on the same inputs:
+    output and final state within 1e-4 of the recurrence's largest
+    magnitude.  zamba2: ``ssd_chunked`` (H 64, P 64, N 64, chunk 128; a
+    = -1, as ``A_log``'s zero init, dt = softplus of a normal) against
+    ``ssd_step`` a token at a time; rwkv6: ``wkv_chunked`` (H 40, D 64,
+    chunk 32; w_log = -exp(N(0, 0.25))) against ``wkv_recurrent``.  Both
+    timed with CUDA events (the span of host-paced launches)."""
+    import torch.nn.functional as F
+
+    from repro_torch.config import get_config
+    from repro_torch.models import rwkv, ssm
+
+    cfg = get_config(arch)
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    if cfg.ssm is not None:
+        s = cfg.ssm
+        H, P, N = s.expand * cfg.d_model // s.head_dim, s.head_dim, (
+            s.n_groups * s.d_state)
+        x, dt = randn(B, T, H, P), F.softplus(randn(B, T, H))
+        a, Bm, Cm = -torch.ones(H, device=dev), randn(B, T, N), randn(B, T, N)
+        name, chunk = "ssd_chunked", s.chunk
+
+        def chunked():
+            return ssm.ssd_chunked(x, dt, a, Bm, Cm, chunk)
+
+        def recurrent():
+            S = torch.zeros((B, H, P, N), device=dev)
+            ys = []
+            for t in range(T):
+                y, S = ssm.ssd_step(S, x[:, t], dt[:, t], a, Bm[:, t],
+                                    Cm[:, t])
+                ys.append(y)
+            return torch.stack(ys, 1), S
+    else:
+        H, D = cfg.d_model // cfg.rwkv.head_dim, cfg.rwkv.head_dim
+        r, k, v = randn(B, T, H, D), randn(B, T, H, D), randn(B, T, H, D)
+        w_log, u = -(randn(B, T, H, D) * 0.5).exp(), randn(H, D) * 0.1
+        name, chunk = "wkv_chunked", cfg.rwkv.chunk
+
+        def chunked():
+            return rwkv.wkv_chunked(r, k, v, w_log, u, chunk)
+
+        def recurrent():
+            return rwkv.wkv_recurrent(r, k, v, w_log, u)
+
+    (y, S), (y_ref, S_ref) = chunked(), recurrent()
+    errs = {}
+    for key, got, want in (("out", y, y_ref), ("state", S, S_ref)):
+        scale = max(float(want.abs().max()), 1.0)
+        errs[key] = float((got - want).abs().max())
+        check(bool(torch.isfinite(got).all()) and errs[key] <= 1e-4 * scale,
+              f"{arch} {name} vs the recurrence: {key} error {errs[key]}, "
+              f"largest magnitude {scale}")
+    emit("scan_check", arch=arch, scan=name, batch=B, tokens=T, chunk=chunk,
+         last_chunk=T % chunk or chunk, out_max_abs=errs["out"],
+         state_max_abs=errs["state"],
+         out_largest=float(y_ref.abs().max()),
+         chunked_ms=event_ms(torch, chunked, reps=3),
+         recurrent_ms=event_ms(torch, recurrent, reps=1))
+    del y, S, y_ref, S_ref
     torch.cuda.empty_cache()
 
 
@@ -1121,9 +1294,11 @@ def ring_wrap_check(torch, dev):
 
 
 def serve_f32_families_phase(torch, dev):
-    for arch, B, T, layers in F32_FAMILIES:
-        f32_family_check(torch, dev, arch, B, T, layers)
+    for arch, B, T, layers, flash in F32_FAMILIES:
+        f32_family_check(torch, dev, arch, B, T, layers, flash)
     ring_wrap_check(torch, dev)
+    for arch, B, T in SCAN_CHECKS:
+        scan_check(torch, dev, arch, B, T)
 
 
 def amazon_phase(torch, dev, rates):

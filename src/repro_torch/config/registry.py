@@ -1,9 +1,8 @@
 """Architecture registry of the port: ``get_config("qwen3-4b")``.
 
-Counterpart of :mod:`repro.config.registry`, limited to the architectures
-the port builds: every family that runs through the attention kernel
-(dense, vlm, audio, MoE and MLA).  Asking for any other (the SSM hybrid
-and RWKV) raises a ``KeyError`` that names what is ported.
+Counterpart of :mod:`repro.config.registry`, with the same architectures:
+the attention families (dense, vlm, audio, MoE, MLA), the Mamba2 hybrid
+and RWKV.  An unknown name raises a ``KeyError`` that lists the known ones.
 """
 from __future__ import annotations
 
@@ -14,8 +13,9 @@ from .base import ModelConfig
 
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
 
-#: ported architecture ids -> config module under repro_torch.configs
+#: architecture ids -> config module under repro_torch.configs
 ARCH_MODULES = {
+    "zamba2-1.2b": "zamba2_1p2b",
     "h2o-danube-3-4b": "h2o_danube3_4b",
     "qwen1.5-4b": "qwen1p5_4b",
     "qwen3-4b": "qwen3_4b",
@@ -23,6 +23,7 @@ ARCH_MODULES = {
     "pixtral-12b": "pixtral_12b",
     "deepseek-v2-236b": "deepseek_v2_236b",
     "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+    "rwkv6-3b": "rwkv6_3b",
     "musicgen-large": "musicgen_large",
 }
 
@@ -38,8 +39,8 @@ def register(name: str):
 def get_config(name: str, *, smoke: bool = False) -> ModelConfig:
     mod = ARCH_MODULES.get(name)
     if mod is None:
-        raise KeyError(f"arch {name!r} is not ported to repro_torch yet; "
-                       f"ported: {sorted(ARCH_MODULES)}")
+        raise KeyError(f"unknown arch {name!r}; known: "
+                       f"{sorted(ARCH_MODULES)}")
     importlib.import_module(f"repro_torch.configs.{mod}")
     return _REGISTRY[f"{name}:smoke" if smoke else name]()
 

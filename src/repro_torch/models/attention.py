@@ -19,7 +19,7 @@ from torch import nn
 
 from ..config.base import ModelConfig, RunConfig
 from ..kernels import ops as kops
-from .layers import apply_rope, rms_norm, rope_tables
+from .layers import apply_rope, linear, rms_norm, rope_tables
 from .params import ParamDef
 
 NEG_INF = -1e30
@@ -220,10 +220,6 @@ def mla_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
     }
 
 
-def _linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    return F.linear(x, lin.weight.to(x.dtype))
-
-
 class MLA(nn.Module):
     """The MLA block body (no residual or norm), as JAX's ``mla_apply``.
 
@@ -263,12 +259,12 @@ class MLA(nn.Module):
         B, T, _ = x.shape
         H, dtype = cfg.n_heads, x.dtype
         nope, rope, L = m.nope_head_dim, m.rope_head_dim, m.kv_lora_rank
-        q = rms_norm(_linear(self.wq_a, x), self.q_norm, cfg.norm_eps)
-        q = _linear(self.wq_b, q).reshape(B, T, H, nope + rope)
+        q = rms_norm(linear(self.wq_a, x), self.q_norm, cfg.norm_eps)
+        q = linear(self.wq_b, q).reshape(B, T, H, nope + rope)
         q_nope, q_rope = q.split([nope, rope], dim=-1)
         cos, sin = rope_tables(positions, rope, cfg.rope_theta)
         q_rope = apply_rope(q_rope, cos, sin)
-        ckv, krope = _linear(self.wkv_a, x).split([L, rope], dim=-1)
+        ckv, krope = linear(self.wkv_a, x).split([L, rope], dim=-1)
         ckv = rms_norm(ckv, self.kv_norm, cfg.norm_eps)
         krope = apply_rope(krope[:, :, None, :], cos, sin)[:, :, 0, :]
 
@@ -309,4 +305,4 @@ class MLA(nn.Module):
             v = F.pad(v, (0, nope + rope - m.v_head_dim))
             out = self.core(qq, k, v, positions, kv_pos)[..., :m.v_head_dim]
         out = out.reshape(B, T, H * m.v_head_dim)
-        return _linear(self.wo, out), cache
+        return linear(self.wo, out), cache

@@ -2,6 +2,7 @@
 a flat parameter dict with the JAX package's keys and shapes."""
 from __future__ import annotations
 
+import re
 from typing import Mapping, Optional
 
 import numpy as np
@@ -13,16 +14,22 @@ from .transformer import Transformer, model_defs
 
 _BIASES = {"attn/bq": "attn.wq.bias", "attn/bk": "attn.wk.bias",
            "attn/bv": "attn.wv.bias"}
-#: 2-D per-block weights kept in the JAX layout (parameters, not Linears)
-_AS_IS = ("moe/router",)
+#: 2-D per-block weights kept in the JAX layout (parameters, not Linears):
+#: the MoE router and Mamba2's depthwise conv taps (W, C)
+_AS_IS = ("moe/router", "ssm/conv_x", "ssm/conv_B", "ssm/conv_C")
 
 
 def _block_key(name: str, per_block_ndim: int) -> "tuple[str, bool]":
     """Module key of one block's ``<name>`` (a ``layers/`` slice or a
-    ``dense{i}/`` leaf), and whether it is transposed (a 2-D weight
-    becomes an ``nn.Linear`` weight)."""
+    ``dense{i}/``, ``tail{t}/`` or ``shared/`` leaf), and whether it is
+    transposed (a 2-D weight becomes an ``nn.Linear`` weight).  RWKV's one
+    ``mix/`` table splits into ``channel_mix`` (the ``*_cm`` names) and
+    ``time_mix``."""
     if name in _BIASES:
         return _BIASES[name], False
+    if name.startswith("mix/"):
+        name = ("channel_mix/" if name.endswith("_cm")
+                else "time_mix/") + name[len("mix/"):]
     key = name.replace("/", ".")
     if per_block_ndim == 2 and name not in _AS_IS:
         return key + ".weight", True
@@ -46,9 +53,13 @@ def from_jax_params(cfg: ModelConfig,
     * ``unembed`` (d, V) -> ``unembed.weight`` (V, d), transposed;
     * ``final_ln`` (d,) -> ``final_ln``;
     * every ``layers/<name>`` stack (L, ...) is split along its first dim,
-      slice i going to ``layers[i]``, and every ``dense{i}/<name>`` leaf
-      goes to ``dense[i]`` (deepseek-v2's leading dense block):
-      - ``ln1``, ``ln2`` (d,) -> ``.ln1``, ``.ln2``;
+      slice i going to ``layers[i]``; every ``dense{i}/<name>`` leaf goes
+      to ``dense[i]`` (deepseek-v2's leading dense block), every
+      ``tail{t}/<name>`` leaf to ``tail[t]`` (the hybrid's tail Mamba
+      blocks) and every ``shared/<name>`` leaf to ``shared``, the
+      hybrid's one attention block (a single module, run at every site):
+      - ``ln1``, ``ln2`` (d,) -> ``.ln1``, ``.ln2``; the Mamba blocks'
+        ``ln`` -> ``.ln``;
       - 2-D weights (in, out) -> the ``nn.Linear`` of the same path, its
         ``.weight`` (out, in) transposed: ``attn/wq``, ``attn/wk``,
         ``attn/wv``, ``attn/wo``; MLA's ``attn/wq_a``, ``attn/wq_b``,
@@ -61,7 +72,20 @@ def from_jax_params(cfg: ModelConfig,
         ``attn/kv_norm``) as they are;
       - ``moe/router`` (d, E) and the expert stacks ``moe/w_gate``,
         ``moe/w_up`` (E, d, f), ``moe/w_down`` (E, f, d) as they are, in
-        the JAX layout.
+        the JAX layout;
+      - Mamba2 (``layers/ssm/*``, 36 stacked at full width, and
+        ``tail{t}/ssm/*``): ``ssm/wx``, ``wz``, ``wB``, ``wC``, ``wdt``,
+        ``wo`` -> ``.ssm.<name>`` Linears, transposed; the depthwise conv
+        taps ``ssm/conv_x``, ``conv_B``, ``conv_C`` (W, C) as they are
+        (parameters in the JAX layout, not Linears, not transposed);
+        ``ssm/A_log``, ``D``, ``dt_bias``, ``norm`` as they are;
+      - RWKV6's one ``mix/`` table splits by name: the channel-mix's
+        ``mix/*_cm`` go to ``.channel_mix`` (``wk_cm``, ``wv_cm``,
+        ``wr_cm`` Linears transposed, ``mu_k_cm``, ``mu_r_cm`` as they
+        are), the rest to ``.time_mix`` (``wr``, ``wk``, ``wv``, ``wg``,
+        ``wo``, the decay LoRA's ``wA`` (d, lora) and ``wB`` (lora, d)
+        Linears transposed; ``mu_*``, ``w0``, ``u``, ``ln_x`` as they
+        are).
 
     The splits and transposes are views of the converted arrays: no weight
     is copied a second time (a full-width bf16 model takes its 8.8 GB
@@ -93,10 +117,10 @@ def from_jax_params(cfg: ModelConfig,
             mod, transpose = _block_key(name, val.dim() - 1)
             for i in range(val.shape[0]):
                 sd[f"layers.{i}.{mod}"] = val[i].T if transpose else val[i]
-        elif head.startswith("dense"):
+        elif name:  # dense{i}/ -> dense.{i}, tail{t}/ -> tail.{t}, shared/
             mod, transpose = _block_key(name, val.dim())
-            sd[f"dense.{head[len('dense'):]}.{mod}"] = (val.T if transpose
-                                                       else val)
+            prefix = re.sub(r"^(dense|tail)(\d+)$", r"\1.\2", head)
+            sd[f"{prefix}.{mod}"] = val.T if transpose else val
     with torch.device("meta"):
         model = Transformer(cfg, run)
     model.load_state_dict(sd, strict=True, assign=True)

@@ -40,6 +40,12 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
                      dim=-1).to(dtype)
 
 
+def linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``x`` through a bias-free ``nn.Linear`` whose weight is cast to
+    x's dtype, as JAX's ``x @ w.astype(dtype)``."""
+    return F.linear(x, lin.weight.to(x.dtype))
+
+
 def mlp_defs(d_model: int, d_ff: int) -> dict[str, ParamDef]:
     return {
         "w_gate": ParamDef((d_model, d_ff), ("embed", "ff")),

@@ -1,17 +1,19 @@
-"""Decoder stack of the attention families: pre-norm blocks of GQA or MLA
-attention and a SwiGLU MLP or an MoE, with optional prefix embeddings.
+"""Decoder stack of every family: the attention families (pre-norm blocks
+of GQA or MLA attention and a SwiGLU MLP or an MoE, with optional prefix
+embeddings), RWKV (time-mix + channel-mix blocks) and the zamba2 hybrid (a
+Mamba2 backbone with one weight-shared attention block run after every
+``attn_every`` Mamba2 blocks, then the tail blocks).
 
-Counterpart of the dense / moe / vlm / audio half of
-:mod:`repro.models.transformer` (``model_defs``, ``init_model``,
-``init_cache``, ``make_forward``).  The parameter table keeps the JAX
-package's flat keys and shapes (``"layers/attn/wq"`` of shape (L, d, H *
-hd), ``"dense0/mlp/w_gate"`` for deepseek-v2's leading dense layer, ...);
-the module holds the leading dense blocks in ``dense`` and the stacked
-ones in ``layers`` (both ``nn.ModuleList``) and is built from such a table
-by :func:`repro_torch.models.convert.from_jax_params`.  The cache is the
-JAX package's tree: ``{"layers": <stacked cache>, "dense0": ...}``.
-SSM/hybrid and RWKV wait for later slices: their configs raise
-``NotImplementedError``.
+Counterpart of :mod:`repro.models.transformer` (``model_defs``,
+``init_model``, ``zamba_plan``, ``init_cache``, ``make_forward``).  The
+parameter table keeps the JAX package's flat keys and shapes
+(``"layers/attn/wq"`` of shape (L, d, H * hd), ``"dense0/mlp/w_gate"`` for
+deepseek-v2's leading dense layer, ``"tail0/ssm/wx"`` and ``"shared/attn/wq"``
+for the hybrid, ...); the module holds the leading dense blocks in
+``dense``, the stacked ones in ``layers``, the hybrid's tail blocks in
+``tail`` (all ``nn.ModuleList``) and its shared block in ``shared``, and is
+built from such a table by :func:`repro_torch.models.convert.from_jax_params`.
+The cache is the JAX package's tree (:func:`init_cache`), updated in place.
 """
 from __future__ import annotations
 
@@ -28,17 +30,8 @@ from .attention import (GQA, MLA, SENTINEL, AttnCache, MLACache, attn_defs,
 from .layers import MLP, mlp_defs, rms_norm
 from .moe import MoE, moe_defs
 from .params import ParamDef, init_params, prefixed, stacked
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not build yet."""
-    missing = [name for name in ("ssm", "rwkv")
-               if getattr(cfg, name) is not None]
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet; the port "
-            "builds the attention families (dense, MoE, MLA, prefix "
-            "embeddings)")
+from .rwkv import ChannelMix, TimeMix, rwkv_defs
+from .ssm import Mamba2, ssm_defs
 
 
 def first_dense_layers(cfg: ModelConfig) -> int:
@@ -58,8 +51,27 @@ def _block_defs(cfg: ModelConfig, *, use_moe: bool) -> dict[str, ParamDef]:
     return defs
 
 
+def _rwkv_block_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
+    defs = {"ln1": ParamDef((cfg.d_model,), (None,), "ones"),
+            "ln2": ParamDef((cfg.d_model,), (None,), "ones")}
+    defs.update(prefixed(rwkv_defs(cfg), "mix/"))
+    return defs
+
+
+def _mamba_block_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
+    defs = {"ln": ParamDef((cfg.d_model,), (None,), "ones")}
+    defs.update(prefixed(ssm_defs(cfg), "ssm/"))
+    return defs
+
+
+def zamba_plan(cfg: ModelConfig) -> "tuple[int, int, int]":
+    """(n_super, per_super, n_tail) for the hybrid stack."""
+    per = cfg.ssm.attn_every
+    n_super = cfg.n_layers // per
+    return n_super, per, cfg.n_layers - n_super * per
+
+
 def model_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
-    check_supported(cfg)
     d = cfg.d_model
     defs = {
         "embed": ParamDef((cfg.vocab_size, d), ("vocab", "embed"), "normal",
@@ -68,6 +80,17 @@ def model_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
     }
     if not cfg.tie_embeddings:
         defs["unembed"] = ParamDef((d, cfg.vocab_size), ("embed", "vocab"))
+    if cfg.rwkv is not None:
+        defs.update(stacked(_rwkv_block_defs(cfg), cfg.n_layers, "layers/"))
+        return defs
+    if cfg.ssm is not None:
+        n_super, per, n_tail = zamba_plan(cfg)
+        defs.update(stacked(_mamba_block_defs(cfg), n_super * per,
+                            "layers/"))
+        for t in range(n_tail):
+            defs.update(prefixed(_mamba_block_defs(cfg), f"tail{t}/"))
+        defs.update(prefixed(_block_defs(cfg, use_moe=False), "shared/"))
+        return defs
     first = first_dense_layers(cfg)
     defs.update(stacked(_block_defs(cfg, use_moe=cfg.moe is not None),
                         cfg.n_layers - first, "layers/"))
@@ -85,15 +108,51 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, device=None) -> dict:
-    """Empty decode cache, the JAX package's tree: ``{"layers": cache of
-    the stacked blocks (leading dim L), "dense{i}": cache of leading dense
-    block i}``.  GQA: :class:`AttnCache` k, v (..., B, S, Hkv*hd) zeros
-    and pos (..., B, S) ``SENTINEL``, S = ``max_seq`` (or the sliding
-    window, if smaller: a ring).  MLA: :class:`MLACache` ckv (..., B,
-    max_seq, kv_lora), krope (..., B, max_seq, rope_dim), pos.
-    ``device=None`` means ``"cuda"``."""
-    check_supported(cfg)
+    """Empty decode cache, the JAX package's tree.  ``device=None`` means
+    ``"cuda"``.
+
+    * attention families: ``{"layers": cache of the stacked blocks
+      (leading dim L), "dense{i}": cache of leading dense block i}``.
+      GQA: :class:`AttnCache` k, v (..., B, S, Hkv*hd) zeros and pos (...,
+      B, S) ``SENTINEL``, S = ``max_seq`` (or the sliding window, if
+      smaller: a ring).  MLA: :class:`MLACache` ckv (..., B, max_seq,
+      kv_lora), krope (..., B, max_seq, rope_dim), pos.
+    * RWKV: ``{"state": (L, B, H, D, D) f32, "x_tm", "x_cm": (L, B, d)}``.
+    * hybrid: ``{"mamba": {"conv_x" (n_super, per, B, W-1, di), "conv_B",
+      "conv_C" (..., W-1, N), "state" (n_super, per, B, H, P, N) f32},
+      "attn": AttnCache with leading dim n_super (the shared block's
+      cache at each of its sites), "tail": [{...} per tail block]}``.
+    """
     dev = resolve_device(device)
+    d = cfg.d_model
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    if cfg.rwkv is not None:
+        H, D, L = d // cfg.rwkv.head_dim, cfg.rwkv.head_dim, cfg.n_layers
+        return {"state": zeros(L, batch, H, D, D, dt=torch.float32),
+                "x_tm": zeros(L, batch, d), "x_cm": zeros(L, batch, d)}
+    if cfg.ssm is not None:
+        s = cfg.ssm
+        n_super, per, n_tail = zamba_plan(cfg)
+        di, gn = s.expand * d, s.n_groups * s.d_state
+
+        def mamba_cache(*lead):
+            return {"conv_x": zeros(*lead, batch, s.conv_width - 1, di),
+                    "conv_B": zeros(*lead, batch, s.conv_width - 1, gn),
+                    "conv_C": zeros(*lead, batch, s.conv_width - 1, gn),
+                    "state": zeros(*lead, batch, di // s.head_dim,
+                                   s.head_dim, gn, dt=torch.float32)}
+
+        kvf = cfg.n_kv_heads * cfg.resolved_head_dim
+        return {"mamba": mamba_cache(n_super, per),
+                "attn": AttnCache(
+                    zeros(n_super, batch, max_seq, kvf),
+                    zeros(n_super, batch, max_seq, kvf),
+                    torch.full((n_super, batch, max_seq), SENTINEL,
+                               dtype=torch.int32, device=dev)),
+                "tail": [mamba_cache() for _ in range(n_tail)]}
     if cfg.mla is not None:
         m = cfg.mla
         seq = max_seq
@@ -108,8 +167,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
     def one(lead):
         shape = (*lead, batch, seq)
-        return kind(*(torch.zeros((*shape, w), dtype=dtype, device=dev)
-                      for w in widths),
+        return kind(*(zeros(*shape, w) for w in widths),
                     torch.full(shape, SENTINEL, dtype=torch.int32,
                                device=dev))
 
@@ -118,6 +176,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     for i in range(first):
         cache[f"dense{i}"] = one(())
     return cache
+
+
+def _at(tree, *idx):
+    """A view of one block's cache in a stacked cache tree (a dict or
+    cache tuple of tensors with leading dims ``idx``)."""
+    if isinstance(tree, dict):
+        return {k: v[idx] for k, v in tree.items()}
+    return type(tree)(*(t[idx] for t in tree))
 
 
 class Block(nn.Module):
@@ -152,13 +218,48 @@ class Block(nn.Module):
         return x + h, cache, aux
 
 
+class RWKVBlock(nn.Module):
+    """``x + time_mix(norm(x))``, then ``x + channel_mix(norm(x))``, as
+    JAX's ``_rwkv_block``: the mixes see the normed input, so the cache's
+    ``x_tm`` / ``x_cm`` hold the last normed rows."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.eps = cfg.norm_eps
+        self.ln1 = nn.Parameter(torch.ones(cfg.d_model))
+        self.ln2 = nn.Parameter(torch.ones(cfg.d_model))
+        self.time_mix = TimeMix(cfg)
+        self.channel_mix = ChannelMix(cfg)
+
+    def forward(self, x, cache=None):
+        x = x + self.time_mix(rms_norm(x, self.ln1, self.eps), cache)[0]
+        return x + self.channel_mix(rms_norm(x, self.ln2, self.eps), cache)[0]
+
+
+class MambaBlock(nn.Module):
+    """``x + ssm(norm(x))``, as JAX's ``_mamba_block``."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.eps = cfg.norm_eps
+        self.ln = nn.Parameter(torch.ones(cfg.d_model))
+        self.ssm = Mamba2(cfg)
+
+    def forward(self, x, cache=None):
+        return x + self.ssm(rms_norm(x, self.ln, self.eps), cache)[0]
+
+
 class Transformer(nn.Module):
-    """The decoder: embed (after any prefix embeddings), the leading dense
-    blocks, the stacked blocks, final norm, unembed."""
+    """The decoder: embed (after any prefix embeddings), the blocks, final
+    norm, unembed.  Attention families: the leading dense blocks
+    (``dense``), then the stacked ones (``layers``).  RWKV: ``layers`` of
+    :class:`RWKVBlock`.  Hybrid: ``n_super`` super-blocks, each ``per``
+    :class:`MambaBlock` of ``layers`` and then the one ``shared``
+    attention :class:`Block` (with that super-block's own attention
+    cache), then the ``tail`` Mamba blocks (:func:`zamba_plan`)."""
 
     def __init__(self, cfg: ModelConfig, run: RunConfig):
         super().__init__()
-        check_supported(cfg)
         self.cfg, self.run = cfg, run
         self.embed = nn.Embedding(cfg.vocab_size, cfg.d_model)
         self.final_ln = nn.Parameter(torch.ones(cfg.d_model))
@@ -167,13 +268,36 @@ class Transformer(nn.Module):
         first = first_dense_layers(cfg)
         self.dense = nn.ModuleList(Block(cfg, run, use_moe=False)
                                    for _ in range(first))
-        self.layers = nn.ModuleList(
-            Block(cfg, run, use_moe=cfg.moe is not None)
-            for _ in range(cfg.n_layers - first))
+        if cfg.rwkv is not None:
+            self.layers = nn.ModuleList(RWKVBlock(cfg)
+                                        for _ in range(cfg.n_layers))
+        elif cfg.ssm is not None:
+            n_super, per, n_tail = zamba_plan(cfg)
+            self.layers = nn.ModuleList(MambaBlock(cfg)
+                                        for _ in range(n_super * per))
+            self.tail = nn.ModuleList(MambaBlock(cfg) for _ in range(n_tail))
+            self.shared = Block(cfg, run, use_moe=False)
+        else:
+            self.layers = nn.ModuleList(
+                Block(cfg, run, use_moe=cfg.moe is not None)
+                for _ in range(cfg.n_layers - first))
 
     def blocks(self) -> list:
-        """Every block in the order the forward runs them."""
-        return [*self.dense, *self.layers]
+        """The config's ``n_layers`` blocks in the order the forward runs
+        them (the hybrid's shared block runs between them and is not one
+        of them: see :meth:`attention_calls`)."""
+        return [*self.dense, *self.layers, *getattr(self, "tail", ())]
+
+    def attention_calls(self) -> list:
+        """The attention core of every attention call a forward makes, in
+        order: one per attention block, the hybrid's shared core once per
+        super-block, none for RWKV.  A prefill launches the flash kernel
+        once per entry."""
+        if self.cfg.rwkv is not None:
+            return []
+        if self.cfg.ssm is not None:
+            return [self.shared.attn.core] * zamba_plan(self.cfg)[0]
+        return [blk.attn.core for blk in self.blocks()]
 
     def forward(self, tokens: torch.Tensor, positions: torch.Tensor,
                 cache: Optional[dict] = None, cache_pos: int = 0, *,
@@ -182,8 +306,9 @@ class Transformer(nn.Module):
         when given, go before the tokens at positions 0..P-1 and the
         tokens' positions shift by P (the JAX package's vlm stub).
         Returns ``(logits (B, P + T, V) f32, cache, aux)``, as JAX's
-        forward: the cache (from :func:`init_cache`) is updated in place at
-        slots ``cache_pos`` onward (mod S for a ring), ``aux`` the MoE
+        forward: the cache (from :func:`init_cache`) is updated in place
+        (attention at slots ``cache_pos`` onward, mod S for a ring; the
+        recurrent states and conv inputs overwritten), ``aux`` the MoE
         losses summed over the blocks (f32 scalar)."""
         dtype = getattr(torch, self.run.compute_dtype)
         x = F.embedding(tokens, self.embed.weight).to(dtype)
@@ -194,15 +319,29 @@ class Transformer(nn.Module):
                                 device=tokens.device).expand(B, P)
             positions = torch.cat([ppos, positions + P], dim=1)
         aux = torch.zeros((), device=x.device)
-        for i, block in enumerate(self.dense):
-            c = None if cache is None else cache[f"dense{i}"]
-            x, _, a = block(x, positions, c, cache_pos)
-            aux = aux + a
-        for i, block in enumerate(self.layers):
-            c = None if cache is None else type(cache["layers"])(
-                *(t[i] for t in cache["layers"]))
-            x, _, a = block(x, positions, c, cache_pos)
-            aux = aux + a
+        if self.cfg.rwkv is not None:
+            for i, block in enumerate(self.layers):
+                x = block(x, None if cache is None else _at(cache, i))
+        elif self.cfg.ssm is not None:
+            n_super, per, _ = zamba_plan(self.cfg)
+            for s in range(n_super):
+                for j in range(per):
+                    c = None if cache is None else _at(cache["mamba"], s, j)
+                    x = self.layers[s * per + j](x, c)
+                c = None if cache is None else _at(cache["attn"], s)
+                x, _, a = self.shared(x, positions, c, cache_pos)
+                aux = aux + a
+            for t, block in enumerate(self.tail):
+                x = block(x, None if cache is None else cache["tail"][t])
+        else:
+            for i, block in enumerate(self.dense):
+                c = None if cache is None else cache[f"dense{i}"]
+                x, _, a = block(x, positions, c, cache_pos)
+                aux = aux + a
+            for i, block in enumerate(self.layers):
+                c = None if cache is None else _at(cache["layers"], i)
+                x, _, a = block(x, positions, c, cache_pos)
+                aux = aux + a
         x = rms_norm(x, self.final_ln, self.cfg.norm_eps)
         w = (self.embed.weight if self.cfg.tie_embeddings
              else self.unembed.weight)

@@ -4,8 +4,10 @@ Counterpart of :mod:`repro.serve.decode`, with the same contracts; the
 weights are the :class:`~repro_torch.models.transformer.Transformer`
 passed where JAX passes ``params``.  Each step runs without autograd.
 The cache (the tree :func:`~repro_torch.models.transformer.init_cache`
-makes) is updated in place and also returned, as JAX returns its new
-cache.  The MoE loss the forward also returns is dropped here, as JAX's
+makes: attention slots, or the recurrent families' states and last
+inputs, or both for the hybrid) is updated in place and also returned, as
+JAX returns its new cache.  A prefill into the cache starts from the
+recurrent states it holds, so a new prompt takes a fresh cache.  The MoE loss the forward also returns is dropped here, as JAX's
 steps drop it; ``model(tokens, positions, ...)`` gives it.
 """
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """The port's serving path against the JAX package at smoke size: first
 qwen3-4b (``qwen3-4b:smoke``: 2 layers, d 64, 4 heads, 2 KV heads, hd 16)
-layer by layer, then every other attention architecture (dense, vlm,
-audio, MoE, MLA) end to end at its own ``:smoke`` config.
+layer by layer, then every other architecture (dense, vlm, audio, MoE,
+MLA, the zamba2 Mamba2 hybrid and RWKV6) end to end at its own ``:smoke``
+config.
 
 Both packages run the same weights (JAX's ``init_model``, handed over as
 numpy through :func:`repro_torch.models.convert.from_jax_params`) on the
@@ -32,7 +33,7 @@ from repro.models import transformer as jtfm
 from repro.serve.decode import make_prefill_cache_step as jax_prefill
 from repro.serve.decode import make_prefill_step as jax_prefill_step
 from repro.serve.decode import make_serve_step as jax_serve
-from repro_torch.config import RunConfig, RWKVConfig, SSMConfig, get_config
+from repro_torch.config import RunConfig, get_config
 from repro_torch.config import list_configs as port_list_configs
 from repro_torch.models import layers as tlayers
 from repro_torch.models import transformer as ttfm
@@ -89,23 +90,13 @@ def test_configs_match_jax(cfg):
                                                                151936)
 
 
-@pytest.mark.parametrize("arch", sorted(set(jax_list_configs())
-                                        - set(port_list_configs())))
-def test_unported_arch_raises_key_error(arch):
+def test_port_registers_every_jax_arch():
+    assert port_list_configs() == jax_list_configs()
+
+
+def test_unknown_arch_raises_key_error():
     with pytest.raises(KeyError, match="qwen3-4b"):
-        get_config(arch)
-
-
-@pytest.mark.parametrize("field,value", [
-    ("ssm", SSMConfig()),
-    ("rwkv", RWKVConfig()),
-])
-def test_unported_families_raise(cfg, field, value):
-    other = dataclasses.replace(cfg, **{field: value})
-    with pytest.raises(NotImplementedError, match=field):
-        ttfm.model_defs(other)
-    with pytest.raises(NotImplementedError, match=field):
-        ttfm.Transformer(other, RunConfig())
+        get_config("no-such-arch")
 
 
 def test_model_defs_match_jax(cfg):
@@ -372,11 +363,17 @@ def test_default_device_raises_without_cuda(cfg, jax_params):
 
 
 # ----------------------------------------------------------------------------
-# every other attention architecture, end to end at its :smoke config
+# every other architecture, end to end at its :smoke config
 # ----------------------------------------------------------------------------
 
 FAMILIES = ("deepseek-coder-33b", "deepseek-v2-236b", "granite-moe-3b-a800m",
-            "h2o-danube-3-4b", "musicgen-large", "pixtral-12b", "qwen1.5-4b")
+            "h2o-danube-3-4b", "musicgen-large", "pixtral-12b", "qwen1.5-4b",
+            "rwkv6-3b", "zamba2-1.2b")
+# recurrent leaves JAX initialises to 0 or 1 -> the value they are drawn
+# around (std 0.5), so that they count; RWKV's token-shift mixes mu_* are
+# drawn in [0, 1) and qwen1.5's qkv biases from N(0, 1)
+DRAWN = {"A_log": 0.0, "dt_bias": 0.0, "D": 1.0, "w0": 0.0, "u": 0.0,
+         "ln_x": 1.0}
 MOE_FAMILIES = ("deepseek-v2-236b", "granite-moe-3b-a800m")
 # port impl -> the JAX impls it is held to (both have a known path)
 HELD_TO = {"flash": ("chunked_causal", "dense"), "dense": ("dense",)}
@@ -385,7 +382,8 @@ HELD_TO = {"flash": ("chunked_causal", "dense"), "dense": ("dense",)}
 @pytest.fixture(scope="module")
 def family():
     """arch -> (port cfg, JAX cfg, numpy params, numpy prefix or None);
-    qwen1.5's qkv biases drawn nonzero (JAX initialises them to 0)."""
+    qwen1.5's qkv biases, the ``DRAWN`` leaves and RWKV's ``mu_*`` mixes
+    drawn (JAX initialises them to 0 or 1)."""
     out = {}
     for i, arch in enumerate(FAMILIES):
         jcfg = jax_get_config(arch, smoke=True)
@@ -393,9 +391,16 @@ def family():
             jcfg, jax.random.PRNGKey(10 + i)).items()}
         rng = np.random.default_rng(20 + i)
         for k in params:
-            if k.split("/")[-1] in ("bq", "bk", "bv"):
+            name = k.split("/")[-1]
+            if name in ("bq", "bk", "bv"):
                 params[k] = rng.standard_normal(params[k].shape,
                                                 dtype=np.float32)
+            elif name in DRAWN:
+                params[k] = (DRAWN[name] + rng.standard_normal(
+                    params[k].shape) * 0.5).astype(np.float32)
+            elif name.startswith("mu_"):
+                params[k] = rng.uniform(0, 1, params[k].shape).astype(
+                    np.float32)
         prefix = None
         if jcfg.n_prefix_embeds:
             prefix = rng.standard_normal(
@@ -432,9 +437,14 @@ def test_family_config_and_defs_match_jax(arch):
 def _module_leaf(m, key):
     """The module's tensor for one JAX key, read back through the JAX
     layout: ``layers/`` stacks re-stacked, 2-D Linear weights transposed
-    back, biases from ``.bias``, the router and expert stacks as they
-    are."""
+    back, biases from ``.bias``, the router, the expert stacks and the
+    conv taps as they are; RWKV's ``mix/`` leaves from ``time_mix`` or
+    (``*_cm``) ``channel_mix``, the hybrid's from ``tail.{t}`` and
+    ``shared``."""
     head, _, name = key.partition("/")
+    if name.startswith("mix/"):
+        name = ("channel_mix/" if name.endswith("_cm")
+                else "time_mix/") + name[len("mix/"):]
     if head in ("embed", "final_ln"):
         return {"embed": m.embed.weight, "final_ln": m.final_ln}[head]
     if head == "unembed":
@@ -451,7 +461,10 @@ def _module_leaf(m, key):
 
     if head == "layers":
         return torch.stack([leaf(f"layers.{i}") for i in range(len(m.layers))])
-    return leaf(f"dense.{int(head[len('dense'):])}")
+    if head == "shared":
+        return leaf("shared")
+    kind = "dense" if head.startswith("dense") else "tail"
+    return leaf(f"{kind}.{int(head[len(kind):])}")
 
 
 @pytest.mark.parametrize("arch", FAMILIES)
@@ -466,6 +479,12 @@ def test_family_from_jax_params_round_trip(family, arch):
     assert sum(p.numel() for p in m.parameters()) == sum(
         v.size for v in params.values())
     assert len(m.blocks()) == cfg.n_layers
+    calls = m.attention_calls()
+    if cfg.ssm is not None:  # one shared core, once per super-block
+        assert len(calls) == ttfm.zamba_plan(cfg)[0] == 2
+        assert all(c is m.shared.attn.core for c in calls)
+    else:
+        assert len(calls) == (0 if cfg.rwkv is not None else cfg.n_layers)
 
 
 @pytest.mark.parametrize("impl", sorted(HELD_TO))
@@ -498,15 +517,55 @@ def test_family_prefill_matches_jax(family, arch, impl):
     assert (float(aux) > 0) == (arch in MOE_FAMILIES)
 
 
+def _port_leaves(tree, path=()):
+    """{path: tensor} of a port cache tree (dicts, cache tuples, lists),
+    the path a tuple of dict keys, field names and list indices."""
+    if isinstance(tree, torch.Tensor):
+        return {path: tree}
+    items = (tree.items() if isinstance(tree, dict)
+             else zip(tree._fields, tree) if hasattr(tree, "_fields")
+             else enumerate(tree))
+    out = {}
+    for k, v in items:
+        out.update(_port_leaves(v, path + (k,)))
+    return out
+
+
+def _jax_leaves(tree):
+    """{path: array} of a JAX cache tree, keyed as :func:`_port_leaves`."""
+    def key(p):
+        return next(getattr(p, a) for a in ("key", "name", "idx")
+                    if hasattr(p, a))
+
+    return {tuple(map(key, path)): v
+            for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
 def _cache_leaves(cache):
-    """{(subtree, field): numpy} of a port cache tree."""
-    return {(k, f): t.clone().numpy() for k, c in cache.items()
-            for f, t in zip(c._fields, c)}
+    return {k: v.float().numpy() for k, v in _port_leaves(cache).items()}
 
 
 def _jax_cache_leaves(cache):
-    return {(path[0].key, path[1].name): np.asarray(v)
-            for path, v in jax.tree_util.tree_flatten_with_path(cache)[0]}
+    return {k: np.asarray(v, np.float32)
+            for k, v in _jax_leaves(cache).items()}
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_init_cache_matches_jax(arch):
+    """The empty cache tree leaf by leaf against JAX's ``init_cache`` (bf16
+    by default): the same paths, shapes, dtypes and values (zeros, empty
+    slots at ``SENTINEL``)."""
+    want = _jax_leaves(jtfm.init_cache(jax_get_config(arch, smoke=True), B,
+                                       MAX_SEQ))
+    got = _port_leaves(ttfm.init_cache(get_config(arch, smoke=True), B,
+                                       MAX_SEQ, device="cpu"))
+    assert set(got) == set(want)
+    for path, w in want.items():
+        assert str(got[path].dtype) == f"torch.{w.dtype}", path
+        assert tuple(got[path].shape) == w.shape, path
+        np.testing.assert_array_equal(got[path].float().numpy(),
+                                      np.asarray(w, np.float32),
+                                      err_msg=str(path))
 
 
 @pytest.mark.parametrize("impl", sorted(HELD_TO))
@@ -517,7 +576,12 @@ def test_family_prefill_and_decode_match_jax(family, arch, impl):
     logits within 1e-4, the cache tree leaf by leaf (positions exactly,
     k/v or MLA's ckv/krope within 1e-5), every step's tokens exactly and
     logits within 1e-4.  danube3's 16-slot window ring wraps during
-    decode; pixtral's prefix fills the first slots."""
+    decode; pixtral's prefix fills the first slots; the hybrid's tree
+    holds the Mamba2 conv inputs and states, the shared block's slots and
+    the tail's, RWKV's the WKV states and the last normed rows.  The f32
+    recurrent ``state`` leaves, sums whose magnitude reaches 3-15 here, are
+    held within 1e-5 of their largest magnitude (1e-5 absolute would be
+    ~5 ulps of f32)."""
     cfg, jcfg, params, prefix = family[arch]
     run = RunConfig(attention_impl=impl, compute_dtype="float32")
     jrun = _jrun(HELD_TO[impl][0])
@@ -541,8 +605,11 @@ def test_family_prefill_and_decode_match_jax(family, arch, impl):
         assert set(got) == set(want)
         for key, w in want.items():
             assert got[key].shape == w.shape, key
-            if key[1] == "pos":
+            if key[-1] == "pos":
                 np.testing.assert_array_equal(got[key], w, err_msg=str(key))
+            elif key[-1] == "state":  # f32 sums reaching 3-15: relative
+                assert _err(got[key], w) <= 1e-5 * max(
+                    1.0, float(np.abs(w).max())), key
             else:
                 assert _err(got[key], w) <= 1e-5, key
 
@@ -607,3 +674,30 @@ def test_family_moe_run_knobs_match_jax(family, arch, knobs):
         torch.from_numpy(toks))
     want = jax_prefill_step(jcfg, jrun)(_jparams(params), jnp.asarray(toks))
     assert _err(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-1.2b"])
+def test_recurrent_family_ragged_prompt(family, arch):
+    """A prompt that is not a whole number of scan chunks (20 tokens: the
+    smoke chunks are 8 and 16; the JAX package cannot prefill it): the
+    prefill into the cache gives the logits of token-by-token decode, and
+    decode goes on from it as from the decoded cache (f32, 1e-3)."""
+    cfg, _, params, _ = family[arch]
+    n = 20
+    run = RunConfig(attention_impl="flash", compute_dtype="float32")
+    m = from_jax_params(cfg, params, run=run, device="cpu")
+    toks = torch.from_numpy(_tokens(cfg, seed=35, n=n + 1))
+    prefilled = ttfm.init_cache(cfg, B, n + 1, dtype=torch.float32,
+                                device="cpu")
+    lg, prefilled = make_prefill_cache_step(cfg, run)(m, toks[:, :n],
+                                                      prefilled)
+    cache = ttfm.init_cache(cfg, B, n + 1, dtype=torch.float32, device="cpu")
+    serve = make_serve_step(cfg, run)
+    steps = []
+    for t in range(n):
+        _, cache, step = serve(m, cache, toks[:, t:t + 1], t)
+        steps.append(step)
+    assert float((lg - torch.stack(steps, 1)).abs().max()) < 1e-3
+    _, _, after_prefill = serve(m, prefilled, toks[:, n:], n)
+    _, _, after_decode = serve(m, cache, toks[:, n:], n)
+    assert float((after_prefill - after_decode).abs().max()) < 1e-3
