@@ -185,11 +185,28 @@ script exits non-zero and prints no result.  Phases:
              width, B 4 x 2000 tokens (a short last chunk), against the
              step-by-step recurrence (<= 1e-4 of its largest magnitude),
              both timed.
-8. the kernels line (census_csr's row adds its launches in the fused,
+8. train   — training on the card (f32 parameters, bf16 compute, remat
+             "full", ``"flash"`` at chunk 1,024).  The flash Function at
+             one full-width qwen3-4b layer (B 1, T = S = 4,096): output and
+             q, k, v gradients against autograd of the plain version
+             (scaled: 2e-2 in bf16, 1e-4 in f32), one forward launch and
+             none in the backward, its forward + backward timed beside
+             the plain version's and SDPA's; qwen3-4b at full width, 2
+             layers, f32: every gradient with "flash" against "dense"
+             (1e-4 of each leaf's largest magnitude); rwkv6-3b at smoke
+             width: its gradients on the card against the CPU's and one
+             step; then the cells of ``TRAIN`` at one row of
+             ``SHAPES["train_4k"]`` (B 1 x 4,096 from ``SyntheticTokens``):
+             qwen3-4b at 16 of 36 layers, zamba2-1.2b at all 38; a checked
+             warm-up step (every gradient finite), 3 timed steps (step
+             ms, tokens/s, peak memory; flash launches a step = the
+             forward's attention calls, 16 and 6), one profiled step
+             (device time by label and kernel kind, idle share).
+9. the kernels line (census_csr's row adds its launches in the fused,
    fleet, session, dynamic, reorder, faults, partition, distributed (per
    rank) and patents phases; flash_attention's its launches per prefill
-   for every architecture and its MLA and window timings), then the
-   result line.
+   for every architecture, per train step, and its MLA and window
+   timings and gradient checks), then the result line.
 
 Exits non-zero without a CUDA device.
 """
@@ -198,6 +215,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import subprocess
@@ -267,6 +285,23 @@ DANUBE_WINDOW = 4096
 # deepseek-v2's prefill core at full width: B, T = S, H = Hkv, qk head dim
 # (nope + rope), V's useful head dim
 MLA_TIMING_SHAPE = (4, 2048, 128, 192, 128)
+# the training cells: one row of SHAPES["train_4k"] (B 1 x 4,096 tokens
+# of SyntheticTokens), f32 parameters, bf16 compute, remat "full", "flash"
+# at chunk 1,024; arch -> depth and the flash launches a step (one per
+# attention call of the forward, none in the backward).  qwen3-4b is cut
+# to 16 of 36 layers (2.39 B parameters, 38 GB of parameters, gradients
+# and moments); zamba2 keeps its 38.  A cell that does not fit fails.
+TRAIN = {"qwen3-4b": dict(layers=16, flash=16),
+         "zamba2-1.2b": dict(layers=38, flash=6)}
+TRAIN_STEPS = 3  # timed, after one checked warm-up step
+TRAIN_CHUNK = 1024
+# the f32 gradient check: qwen3-4b at full width, 2 layers, B 1 x this
+TRAIN_F32_T = 2048
+# the device split of a profiled train step: kernel name substrings
+KERNEL_KINDS = (("flash_forward", ("flash_kernel",)),
+                ("gemm", ("gemm", "xmma", "cutlass", "nvjet")),
+                ("softmax", ("softmax",)),
+                ("optimizer", ("multi_tensor_apply",)))
 
 
 def emit(phase, **fields):
@@ -549,6 +584,17 @@ def kernel_err(got, want):
     return float(diff.max()), float(scaled.max())
 
 
+def block_err(got, want, rows=128):
+    """Largest normwise error of a block of ``rows`` consecutive positions
+    (dim 1: queries for q and the output, keys for k and v) over that
+    block's own norm.  A fault confined to one tile of rows shows at its
+    own size there, however small those rows are beside the tensor's
+    largest values (late causal rows average thousands of keys)."""
+    diff = got.float() - want.float()
+    return max(float(d.norm() / w.float().norm().clamp(min=1e-30))
+               for d, w in zip(diff.split(rows, 1), want.split(rows, 1)))
+
+
 def flash_kernel_phase(torch, dev):
     """The flash kernel against its plain version, its times and bound."""
     import torch.nn.functional as F
@@ -711,11 +757,16 @@ def flash_window_timing(torch, dev):
 
 
 def device_split(torch, fn):
-    """Run ``fn`` once under torch.profiler: wall time, device busy time,
-    the device's idle share, the kernels that take the most time and the
-    host ops with the most host time of their own; for each
-    ``record_function`` label ``group:<name>`` opened inside ``fn``, the
-    device time of the kernels under it and its host time."""
+    """Run ``fn`` once under torch.profiler and read its exported trace
+    (``build/profile_trace.json``, removed after; ``key_averages()``
+    spends minutes on a train step's ~10^5 launches): wall time, device
+    busy time (kernels, copies and fills), the device's idle share,
+    launches, device ms by kernel kind (``KERNEL_KINDS``, else "other"),
+    the kernels that take the most time and the host ops with the most
+    host time of their own; for each ``record_function`` label
+    ``group:<name>`` opened inside ``fn``, the device time of the work
+    launched under it (on its thread, inside its span; nested labels each
+    count it), its host time and its calls."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -724,28 +775,81 @@ def device_split(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
-    # a label's device-side span is a user annotation, not a kernel
-    on_card = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                      for e in events if e.device_type == cuda
-                      and not e.is_user_annotation), reverse=True)
-    busy_ms = sum(ms for ms, _, _ in on_card)
-    on_host = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key)
-                      for e in events if e.device_type == cpu),
-                     reverse=True)
-    groups = {e.key[6:]: dict(device_ms=e.device_time_total / 1e3,
-                              host_ms=e.cpu_time_total / 1e3, calls=e.count)
-              for e in events
-              if e.key.startswith("group:") and e.device_type == cpu}
-    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
-                device_idle_share=1 - busy_ms / wall_ms,
-                kernel_launches=sum(c for _, c, _ in on_card),
-                groups=groups,
+    path = os.path.join(ROOT, "build", "profile_trace.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    try:
+        with open(path) as f:
+            events = [e for e in json.load(f)["traceEvents"] if "dur" in e]
+    finally:
+        os.remove(path)
+    launch_of, host, work = {}, {}, []
+    for e in events:
+        cat = e.get("cat")
+        if cat == "cuda_runtime" and "correlation" in e.get("args", {}):
+            launch_of[e["args"]["correlation"]] = (e["tid"], e["ts"])
+        elif cat in ("cpu_op", "user_annotation"):
+            host.setdefault(e["tid"], []).append(e)
+        elif cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            work.append(e)
+    # host ops: time of their own (their span less their children's)
+    own = {}
+    groups, points = {}, []  # label opens (0) and closes (2), launches (1)
+    for tid, evs in host.items():
+        evs.sort(key=lambda e: (e["ts"], -e["dur"]))
+        stack = []
+        for e in evs:
+            while stack and stack[-1][0] <= e["ts"]:
+                stack.pop()
+            if stack:
+                own[stack[-1][1]][0] -= e["dur"] / 1e3
+            total = own.setdefault(e["name"], [0.0, 0])
+            total[0] += e["dur"] / 1e3
+            total[1] += 1
+            stack.append((e["ts"] + e["dur"], e["name"]))
+            if e["name"].startswith("group:"):
+                g = groups.setdefault(e["name"][6:], dict(
+                    device_ms=0.0, host_ms=0.0, calls=0))
+                g["host_ms"] += e["dur"] / 1e3
+                g["calls"] += 1
+                points += [(e["ts"], 0, tid, e["name"][6:]),
+                           (e["ts"] + e["dur"], 2, tid, e["name"][6:])]
+    busy, by_name, kinds = 0.0, {}, {}
+    for e in work:
+        ms, key = e["dur"] / 1e3, e["name"]
+        busy += ms
+        total, count = by_name.get(key, (0.0, 0))
+        by_name[key] = (total + ms, count + 1)
+        kind = next((k for k, subs in KERNEL_KINDS
+                     if any(x in key.lower() for x in subs)), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + ms
+        tid, ts = launch_of.get(e.get("args", {}).get("correlation"),
+                                (None, None))
+        if tid in host:
+            points.append((ts, 1, tid, ms))
+    open_labels = {}  # tid -> {label: depth}
+    for _, kind, tid, x in sorted(points, key=lambda p: p[:2]):
+        active = open_labels.setdefault(tid, {})
+        if kind == 0:
+            active[x] = active.get(x, 0) + 1
+        elif kind == 2:
+            active[x] -= 1
+            if not active[x]:
+                del active[x]
+        else:
+            for name in active:
+                groups[name]["device_ms"] += x
+    top = sorted(((ms, c, k) for k, (ms, c) in by_name.items()),
+                 reverse=True)[:15]
+    host_top = sorted(((ms, c, k) for k, (ms, c) in own.items()),
+                      reverse=True)[:10]
+    return dict(wall_ms=wall_ms, device_busy_ms=busy, kernel_kinds=kinds,
+                device_idle_share=1 - busy / wall_ms,
+                kernel_launches=len(work), groups=groups,
                 top=[dict(ms=ms, count=c, kernel=k[:100])
-                     for ms, c, k in on_card[:15]],
+                     for ms, c, k in top],
                 host_top=[dict(ms=ms, count=c, op=k[:60])
-                          for ms, c, k in on_host[:10]])
+                          for ms, c, k in host_top])
 
 
 @contextlib.contextmanager
@@ -774,6 +878,42 @@ def labelled_scans():
     finally:
         for (mod, name), fn in zip(names, saved):
             setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def labelled_training():
+    """:func:`labelled_scans`, and ``record_function`` labels around the
+    flash kernel's forward launch (``group:flash_forward``), the flash
+    Function's recomputed backward (``group:attention_backward``: the
+    chunked twin's forward and its autograd) and the optimizer update
+    (``group:optimizer``), for :func:`device_split`; undone after.  The
+    port looks each up at call time (the operator calls the module's
+    ``_forward``, autograd the class's ``backward``, the step the train
+    module's ``adamw_update``)."""
+    from torch.profiler import record_function
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.train import train_step as ts
+
+    def label(name, fn):
+        def wrapped(*args, **kwargs):
+            with record_function(f"group:{name}"):
+                return fn(*args, **kwargs)
+        return wrapped
+
+    forward, backward = fa._forward, fa.FlashAttentionFunction.backward
+    update = ts.adamw_update
+    fa._forward = label("flash_forward", forward)
+    fa.FlashAttentionFunction.backward = staticmethod(
+        label("attention_backward", backward))
+    ts.adamw_update = label("optimizer", update)
+    try:
+        with labelled_scans():
+            yield
+    finally:
+        fa._forward = forward
+        fa.FlashAttentionFunction.backward = staticmethod(backward)
+        ts.adamw_update = update
 
 
 def serve_phase(torch, dev):
@@ -886,6 +1026,27 @@ def recurrent_leaves(cache):
     return [] if "layers" in cache else list(cache.values())
 
 
+@contextlib.contextmanager
+def held_to_plain(torch, calls, errs):
+    """While entered, every call of an attention core in ``calls`` appends
+    its :func:`plain_error` (the kernel's output against the plain
+    version on that call's own inputs) to ``errs``.  One hook per core:
+    the hybrid's shared core is called once per super-block."""
+    def hook(core, args, out):
+        with torch.no_grad():
+            errs.append(plain_error(torch, out.detach(),
+                                    *(a.detach() for a in args),
+                                    core.window))
+
+    hooks = [core.register_forward_hook(hook)
+             for core in {id(c): c for c in calls}.values()]
+    try:
+        yield
+    finally:
+        for h in hooks:
+            h.remove()
+
+
 def serve_family(torch, dev, arch, spec, *, phase="family", profile=()):
     """One architecture's cell at full width, bf16: a checked prefill
     (every flash launch held to the plain version on that site's own
@@ -942,19 +1103,10 @@ def serve_family(torch, dev, arch, spec, *, phase="family", profile=()):
         return prefill(model, prompts, cache, prefix)
 
     errs = []
-
-    def hold_to_plain(core, args, out):
-        errs.append(plain_error(torch, out, *args, core.window))
-
-    # one hook per core: the hybrid's shared core is called once per
-    # super-block
-    hooks = [core.register_forward_hook(hold_to_plain)
-             for core in {id(c): c for c in calls}.values()]
     flash_attention.launches = 0
-    logits, cache = fresh_prefill()
-    torch.cuda.synchronize()
-    for h in hooks:
-        h.remove()
+    with held_to_plain(torch, calls, errs):
+        logits, cache = fresh_prefill()
+        torch.cuda.synchronize()
     check(flash_attention.launches == flash == len(errs),
           f"{arch} checked prefill: {flash_attention.launches} launches, "
           f"{len(errs)} checked, want {flash}")
@@ -1299,6 +1451,319 @@ def serve_f32_families_phase(torch, dev):
     ring_wrap_check(torch, dev)
     for arch, B, T in SCAN_CHECKS:
         scan_check(torch, dev, arch, B, T)
+
+
+def flash_grad_check(torch, dev):
+    """The flash Function under autograd at one full-width qwen3-4b layer
+    (B 1, T = S = 4,096, H 32, Hkv 8, D 128, causal): its output and q,
+    k, v gradients against autograd of the plain version on the same
+    values in f32, scaled by max(1, |want|): within 2e-2 in bf16, 1e-4 in
+    f32; and each block of 128 rows within 5e-2 (bf16) or 1e-4 (f32) of
+    its own norm (:func:`block_err`); one forward launch, none in the
+    backward.  Times the Function's forward + backward, the plain
+    version's and SDPA's (CUDA events)."""
+    import torch.nn.functional as F
+
+    from repro_torch.config import SHAPES
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    T = SHAPES["train_4k"].seq_len
+    out = {}
+    for dtype, tol, block_tol in ((torch.bfloat16, 2e-2, 5e-2),
+                                  (torch.float32, 1e-4, 1e-4)):
+        q, k, v, q_pos, kv_pos = flash_inputs(torch, dev, dtype, 1, T, T,
+                                              32, 8, 128, seed=7)
+        q, k, v = (t.requires_grad_() for t in (q, k, v))
+        g_out = torch.randn(q.shape, device=dev, dtype=dtype,
+                            generator=torch.Generator(dev).manual_seed(8))
+        flash_attention.launches = 0
+        got = flash_attention(q, k, v, q_pos, kv_pos, chunk=TRAIN_CHUNK)
+        g_got = torch.autograd.grad(got, (q, k, v), g_out)
+        torch.cuda.synchronize()
+        check(flash_attention.launches == 1,
+              f"flash under autograd: {flash_attention.launches} launches")
+        ins = [t.detach().float().requires_grad_() for t in (q, k, v)]
+        want = flash_attention_ref(*ins, q_pos, kv_pos)
+        g_want = torch.autograd.grad(want, ins, g_out.float())
+        pairs = [(got.detach(), want.detach()), *zip(g_got, g_want)]
+        errs = [kernel_err(a, b) for a, b in pairs]
+        blocks = [block_err(a, b) for a, b in pairs]
+        worst = max(e[1] for e in errs)
+        check(worst < tol, f"flash Function {dtype}: scaled errors {errs}")
+        check(max(blocks) < block_tol,
+              f"flash Function {dtype}: block errors {blocks}")
+        del got, g_got, want, g_want, ins
+
+        def fn_step():
+            o = flash_attention(q, k, v, q_pos, kv_pos, chunk=TRAIN_CHUNK)
+            torch.autograd.grad(o, (q, k, v), g_out)
+
+        def plain_step():
+            o = flash_attention_ref(q, k, v, q_pos, kv_pos)
+            torch.autograd.grad(o, (q, k, v), g_out)
+
+        qs, ks, vs = (t.detach().transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        gs = g_out.transpose(1, 2).contiguous()
+
+        def sdpa_step():
+            o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                               enable_gqa=True)
+            torch.autograd.grad(o, (qs, ks, vs), gs)
+
+        name = str(dtype)[6:]
+        out[name] = dict(
+            out_scaled_err=errs[0][1], grad_scaled_errs=[e[1] for e in
+                                                         errs[1:]],
+            block_errs=blocks, block_tolerance=block_tol,
+            max_abs_err=max(e[0] for e in errs),
+            fwd_bwd_ms=event_ms(torch, fn_step, reps=2),
+            plain_fwd_bwd_ms=event_ms(torch, plain_step, reps=1),
+            sdpa_fwd_bwd_ms=event_ms(torch, sdpa_step, reps=5))
+        emit("flash_grad", dtype=name, shape=dict(B=1, T=T, S=T, H=32, Hkv=8,
+                                                  D=128),
+             chunk=TRAIN_CHUNK, tolerance=tol, **out[name])
+        del q, k, v, qs, ks, vs, g_out, gs
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_cell(torch, dev, arch, spec):
+    """One training cell (``TRAIN``): qwen3-4b or zamba2-1.2b at full width,
+    ``spec["layers"]`` layers, one row of ``train_4k`` (B 1 x 4,096).
+    One forward of the loss with every flash call held to the plain
+    version on that call's own inputs (2e-2 scaled, as in serving;
+    ``spec["flash"]`` calls checked), then a checked warm-up step (every
+    parameter's gradient finite, the loss finite, ``spec["flash"]`` flash
+    launches), TRAIN_STEPS timed steps (step ms, tokens/s, peak memory,
+    launches each), one more profiled with the device split (labels:
+    flash forward, attention backward, scans, optimizer; kernels by
+    kind)."""
+    from repro_torch.config import SHAPES, RunConfig, get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.convert import from_jax_params
+    from repro_torch.models.params import count_params
+    from repro_torch.models.transformer import init_model, model_defs
+    from repro_torch.train import (adamw_init, adamw_update, make_grad_fn,
+                                   make_loss_fn, make_train_step)
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=spec["layers"])
+    cut = (None if cfg.n_layers == full.n_layers
+           else f"{cfg.n_layers} of {full.n_layers} layers")
+    shape = SHAPES["train_4k"]
+    T = shape.seq_len
+    n_params = count_params(model_defs(cfg))
+    gc.collect()
+    torch.cuda.empty_cache()
+    # parameters, gradients and both moments in f32, and the f32 logits,
+    # their log-softmax and its gradient
+    need = 16 * n_params + 3 * 4 * T * cfg.vocab_size
+    free = torch.cuda.mem_get_info()[0]
+    check(need <= free, f"train {arch}: {need} bytes at {cfg.n_layers} "
+                        f"layers, {free} free")
+    run = RunConfig(attention_impl="flash", attention_chunk=TRAIN_CHUNK,
+                    remat="full", param_dtype="float32",
+                    compute_dtype="bfloat16")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = from_jax_params(cfg, init_model(cfg, gen, torch.float32),
+                            run=run, device=dev, trainable=True)
+    params = dict(model.named_parameters())
+    opt = adamw_init(params)
+    ds = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=T,
+                         global_batch=shape.global_batch,
+                         n_shards=shape.global_batch)
+    batches = [{"tokens": torch.from_numpy(ds.batch_at(i)).to(dev)}
+               for i in range(TRAIN_STEPS + 2)]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    check(len(model.attention_calls()) == spec["flash"],
+          f"train {arch}: {len(model.attention_calls())} attention calls")
+
+    # the kernel at this cell's shapes against its plain version: one
+    # forward of the loss on the warm-up batch (the step's forward path,
+    # under autograd, no backward)
+    errs = []
+    with held_to_plain(torch, model.attention_calls(), errs):
+        loss, _ = make_loss_fn(cfg, run)(model, batches[0])
+        torch.cuda.synchronize()
+    del loss
+    abs_errs, scaled_errs = zip(*errs) if errs else ((), ())
+    worst = max(scaled_errs, default=0.0)
+    check(len(errs) == spec["flash"] and worst < 2e-2,
+          f"train {arch}: {len(errs)} flash calls checked, want "
+          f"{spec['flash']}; scaled error {worst}")
+
+    # the checked warm-up step
+    flash_attention.launches = 0
+    loss, mets, grads = make_grad_fn(cfg, run)(model, batches[0])
+    torch.cuda.synchronize()
+    warm_launches = flash_attention.launches
+    bad = [k for k, g in grads.items() if not bool(torch.isfinite(g).all())]
+    zero = [k for k, g in grads.items() if not bool(g.any())]
+    check(warm_launches == spec["flash"],
+          f"train {arch} warm-up: {warm_launches} flash launches, want "
+          f"{spec['flash']}")
+    check(set(grads) == set(params) and not bad
+          and bool(torch.isfinite(loss)),
+          f"train {arch} warm-up: loss {float(loss)}, non-finite grads {bad}")
+    opt, _ = adamw_update(params, grads, opt, run)
+    del grads
+
+    step = make_train_step(cfg, run)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses, norms, launches = [], [], [], []
+    for b in batches[1:TRAIN_STEPS + 1]:
+        torch.cuda.synchronize()
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        model, opt, mets = step(model, opt, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        launches.append(flash_attention.launches)
+        losses.append(float(mets["loss"]))
+        norms.append(float(mets["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated()
+    check(all(n == spec["flash"] for n in launches),
+          f"train {arch}: flash launches per step {launches}, want "
+          f"{spec['flash']}")
+    check(all(map(math.isfinite, losses + norms)),
+          f"train {arch}: losses {losses}, grad norms {norms}")
+    check(all(bool(torch.isfinite(p).all()) for p in params.values()),
+          f"train {arch}: non-finite parameters after {TRAIN_STEPS} steps")
+    step_ms = [t * 1e3 for t in times]
+    rec = dict(arch=arch, layers=cfg.n_layers, cut=cut, d_model=cfg.d_model,
+               vocab=cfg.vocab_size, batch=1, seq=T, params=n_params,
+               setup_s=setup_s, step_ms=step_ms,
+               tokens_per_s=[T / t for t in times],
+               max_memory_allocated=peak, flash_launches_per_step=launches,
+               warmup_flash_launches=warm_launches,
+               flash_max_abs_err=max(abs_errs),
+               flash_max_scaled_err=worst, losses=losses,
+               grad_norms=norms, zero_grad_leaves=zero)
+    emit("train", **rec)
+    with labelled_training():
+        split = device_split(torch, lambda: step(model, opt,
+                                                batches[TRAIN_STEPS + 1]))
+    emit("train_profile", arch=arch, **split)
+    del model, params, opt, batches, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_f32_check(torch, dev):
+    """qwen3-4b at full width, 2 layers, f32, B 1 x TRAIN_F32_T: the loss
+    and every gradient with ``"flash"`` (2 launches) against ``"dense"``
+    (none), within 1e-4 of each leaf's largest magnitude (at least 1e-3
+    of the largest of all)."""
+    from repro_torch.config import RunConfig, get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.convert import from_jax_params
+    from repro_torch.models.transformer import init_model
+    from repro_torch.train import make_grad_fn
+
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=F32_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    params = init_model(cfg, gen, torch.float32)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, TRAIN_F32_T + 1),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32)}
+    res = {}
+    for impl in ("flash", "dense"):
+        run = RunConfig(attention_impl=impl, attention_chunk=TRAIN_CHUNK,
+                        remat="full", param_dtype="float32",
+                        compute_dtype="float32")
+        model = from_jax_params(cfg, params, run=run, device=dev,
+                                trainable=True)
+        flash_attention.launches = 0
+        loss, _, grads = make_grad_fn(cfg, run)(model, batch)
+        torch.cuda.synchronize()
+        want = F32_LAYERS if impl == "flash" else 0
+        check(flash_attention.launches == want,
+              f"f32 train {impl}: {flash_attention.launches} flash launches")
+        res[impl] = (float(loss), grads)
+        del model
+    (lf, gf), (ld, gd) = res["flash"], res["dense"]
+    top = max(float(g.abs().max()) for g in gd.values())
+    errs = {k: float((gf[k] - g).abs().max())
+            / max(float(g.abs().max()), 1e-3 * top) for k, g in gd.items()}
+    worst = max(errs, key=errs.get)
+    check(abs(lf - ld) <= 1e-4 * max(1.0, abs(ld)) and errs[worst] <= 1e-4,
+          f"f32 train flash vs dense: loss {lf} vs {ld}, {worst} "
+          f"{errs[worst]}")
+    emit("train_f32", arch=ARCH, layers=F32_LAYERS, seq=TRAIN_F32_T,
+         loss_flash=lf, loss_dense=ld, worst_leaf=worst,
+         worst_scaled_err=errs[worst], leaves=len(errs))
+    del res, gf, gd, params
+    torch.cuda.empty_cache()
+    return errs[worst]
+
+
+def rwkv_train_check(torch, dev):
+    """rwkv6-3b at ``:smoke`` width on the card, f32: the loss and every
+    gradient of a train step's backward against the same on the CPU
+    (1e-4 of each leaf's largest magnitude, at least 1e-3 of the largest
+    of all), then one whole step (finite loss, no flash launch)."""
+    from repro_torch.config import RunConfig, get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.convert import from_jax_params
+    from repro_torch.models.transformer import init_model
+    from repro_torch.train import adamw_init, make_grad_fn, make_train_step
+
+    cfg = get_config("rwkv6-3b", smoke=True)
+    run = RunConfig(remat="full", compute_dtype="float32")
+    params = init_model(cfg, torch.Generator().manual_seed(5))
+    tokens = torch.from_numpy(SyntheticTokens(
+        vocab_size=cfg.vocab_size, seq_len=64, global_batch=2).batch_at(0))
+    res = {}
+    for where in ("cpu", dev):
+        model = from_jax_params(cfg, params, run=run, device=where,
+                                trainable=True)
+        loss, _, grads = make_grad_fn(cfg, run)(
+            model, {"tokens": tokens.to(where)})
+        res[str(where)] = (float(loss), {k: g.cpu() for k, g in
+                                         grads.items()})
+    (lc, gc_), (lg, gg) = res["cpu"], res[str(dev)]
+    top = max(float(g.abs().max()) for g in gc_.values())
+    worst = max(float((gg[k] - g).abs().max())
+                / max(float(g.abs().max()), 1e-3 * top)
+                for k, g in gc_.items())
+    check(all(bool(torch.isfinite(g).all()) for g in gg.values())
+          and abs(lg - lc) <= 1e-4 * max(1.0, abs(lc)) and worst <= 1e-4,
+          f"rwkv6 train on the card vs the CPU: loss {lg} vs {lc}, "
+          f"gradients {worst}")
+    flash_attention.launches = 0
+    model = from_jax_params(cfg, params, run=run, device=dev, trainable=True)
+    opt = adamw_init(dict(model.named_parameters()))
+    _, opt, mets = make_train_step(cfg, run)(model, opt,
+                                             {"tokens": tokens.to(dev)})
+    step_loss = float(mets["loss"])
+    check(math.isfinite(step_loss) and flash_attention.launches == 0,
+          f"rwkv6 train step: loss {step_loss}, "
+          f"{flash_attention.launches} flash launches")
+    emit("train_rwkv6_smoke", loss_card=lg, loss_cpu=lc,
+         worst_scaled_grad_err=worst, step_loss=step_loss)
+
+
+def train_phase(torch, dev):
+    """The training slice on the card: the flash Function's gradient, the
+    f32 2-layer flash-vs-dense gradients, rwkv6's scan under autograd,
+    then the ``TRAIN`` cells.  Returns ``({arch: flash launches a step},
+    the Function's largest checked bf16 error, its times)``."""
+    grad = flash_grad_check(torch, dev)
+    train_f32_check(torch, dev)
+    rwkv_train_check(torch, dev)
+    recs = {arch: train_cell(torch, dev, arch, spec)
+            for arch, spec in TRAIN.items()}
+    return ({arch: r["flash_launches_per_step"][0] for arch, r in
+             recs.items()}, grad["bfloat16"]["max_abs_err"], grad)
 
 
 def amazon_phase(torch, dev, rates):
@@ -3270,6 +3735,7 @@ def run(dev) -> int:
     serve_f32_phase(torch, dev)
     family_launches, family_err = serve_families_phase(torch, dev)
     serve_f32_families_phase(torch, dev)
+    train_launches, train_err, train_grad = train_phase(torch, dev)
 
     # 8. kernels line, result line --------------------------------------------
     flash_row = dict(
@@ -3278,11 +3744,12 @@ def run(dev) -> int:
         replaces="src/repro/kernels/flash_attention.py:23",
         launches=served["launches"],
         max_abs_err=max(flash["max_abs_err"], served["max_abs_err"],
-                        flash["mla"]["max_abs_err"], family_err),
+                        flash["mla"]["max_abs_err"], family_err, train_err),
         ms=flash["ms"], plain_ms=flash["plain_ms"],
         bound_ms=flash["bound_ms"], bound_by=flash["bound_by"],
         library_ms=flash["library_ms"],
         launches_per_prefill={ARCH: served["launches"], **family_launches},
+        launches_per_train_step=train_launches, under_autograd=train_grad,
         mla_d192=flash["mla"], window_d120=flash["window"])
     print(json.dumps({"kernels": [csr_row, census_row, flash_row]}),
           flush=True)

@@ -1,8 +1,8 @@
-from .base import (MLAConfig, MoEConfig, ModelConfig, RWKVConfig, RunConfig,
-                   SSMConfig)
+from .base import (SHAPES, MLAConfig, MoEConfig, ModelConfig, RWKVConfig,
+                   RunConfig, ShapeConfig, SSMConfig)
 from .registry import get_config, list_configs, register
 
 __all__ = [
-    "MLAConfig", "MoEConfig", "ModelConfig", "RWKVConfig", "RunConfig",
-    "SSMConfig", "get_config", "list_configs", "register",
+    "SHAPES", "MLAConfig", "MoEConfig", "ModelConfig", "RWKVConfig",
+    "RunConfig", "SSMConfig", "ShapeConfig", "get_config", "list_configs", "register",
 ]

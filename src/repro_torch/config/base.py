@@ -2,8 +2,9 @@
 
 A copy of the model half of :mod:`repro.config.base` (``ModelConfig`` and
 its sub-configs, unchanged, so the two packages describe one architecture
-by the same numbers) and a :class:`RunConfig` holding only what the
-serving path reads.  Plain Python; imports neither ``jax`` nor ``repro``.
+by the same numbers), ``ShapeConfig`` and the ``SHAPES`` table (equal to
+JAX's), and a :class:`RunConfig` holding what the serving and training
+paths read.  Plain Python; imports neither ``jax`` nor ``repro``.
 """
 from __future__ import annotations
 
@@ -149,16 +150,46 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: Literal["train", "prefill", "decode"]
+    seq_len: int
+    global_batch: int
+
+
+#: The assignment's four shape cells (JAX's ``SHAPES``).
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
+}
+
+ATTENTION_IMPLS = ("flash", "dense", "chunked", "chunked_causal")
+
+
+@dataclasses.dataclass(frozen=True)
 class RunConfig:
-    """Knobs of the serving path, orthogonal to the architecture.
+    """Knobs orthogonal to the architecture: attention, remat, the
+    optimizer, dtypes and MoE dispatch.
 
     ``attention_impl``: ``"flash"`` is the hand-written CUDA flash kernel
-    (JAX's ``"pallas"``; on a CPU tensor its plain version runs),
-    ``"dense"`` the rectangular einsum reference (JAX's ``"dense"``).
-    JAX's ``"chunked"``/``"chunked_causal"`` XLA twins and its
-    ``attention_chunk`` belong to training and wait with it: the kernel's
-    tile is its own.  Single-token decode always takes the einsum decode
-    path (MLA: the absorbed path), as in JAX.
+    (JAX's ``"pallas"``; on a CPU tensor its plain version runs; under
+    autograd its backward recomputes through the ``"chunked_causal"``
+    twin), ``"dense"`` the rectangular einsum reference, ``"chunked"`` and
+    ``"chunked_causal"`` JAX's flash-style twins in torch ops (an online
+    softmax over ``attention_chunk``-key blocks; the causal one skips the
+    blocks no query of a row sees, by position).  ``"flash"`` stays the
+    port's default; JAX's is ``"chunked_causal"``.  Single-token decode
+    always takes the einsum decode path (MLA: the absorbed path), as in
+    JAX.  ``remat_attention`` checkpoints each query row of the twins.
+
+    ``remat``: ``"full"`` recomputes each block in the backward (the flash
+    kernel's output excepted, :mod:`repro_torch.models.transformer`),
+    ``"dots"`` keeps the matmul outputs and recomputes the rest,
+    ``"none"`` keeps everything.  The optimizer fields, ``grad_compression``
+    and ``microbatch`` are JAX's, with JAX's defaults
+    (:mod:`repro_torch.train`).
 
     ``moe_groups`` and ``moe_dense_eval`` are JAX's MoE dispatch knobs
     (:func:`repro_torch.models.moe.moe_apply`), with JAX's defaults: one
@@ -166,17 +197,39 @@ class RunConfig:
     token).
     """
 
-    attention_impl: Literal["flash", "dense"] = "flash"
+    attention_impl: Literal["flash", "dense", "chunked",
+                            "chunked_causal"] = "flash"
+    attention_chunk: int = 1024
+    remat: Literal["none", "full", "dots"] = "full"
+    remat_attention: bool = False
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    adam_b1: float = 0.9
+    adam_b2: float = 0.95
+    grad_compression: Literal["none", "int8"] = "none"
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
+    microbatch: Optional[int] = None  # gradient-accumulation steps
     moe_groups: Optional[int] = None  # GShard grouped dispatch (None = flat)
     moe_dense_eval: bool = False  # all experts on every token, no dispatch
 
     def __post_init__(self):
-        if self.attention_impl not in ("flash", "dense"):
+        if self.attention_impl not in ATTENTION_IMPLS:
             raise ValueError(
                 f"unknown attention impl {self.attention_impl!r}; the port "
-                "has 'flash' (JAX 'pallas') and 'dense'")
+                f"has {ATTENTION_IMPLS} ('flash' is JAX's 'pallas')")
+        if self.attention_chunk < 1:
+            raise ValueError(f"attention_chunk must be >= 1, got "
+                             f"{self.attention_chunk}")
+        if self.remat not in ("none", "full", "dots"):
+            raise ValueError(f"unknown remat {self.remat!r}")
+        if self.grad_compression not in ("none", "int8"):
+            raise ValueError(f"unknown grad_compression "
+                             f"{self.grad_compression!r}")
+        if self.microbatch is not None and self.microbatch < 1:
+            raise ValueError(f"microbatch must be >= 1 or None, got "
+                             f"{self.microbatch}")
         if self.moe_groups is not None and self.moe_groups < 1:
             raise ValueError(f"moe_groups must be >= 1 or None, got "
                              f"{self.moe_groups}")

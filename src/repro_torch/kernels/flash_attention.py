@@ -5,11 +5,26 @@ Counterpart of :mod:`repro.kernels.flash_attention` (the Pallas TPU
 kernel).  A CUDA tensor launches the CUDA kernel or raises; a CPU tensor
 runs the plain version (:func:`repro_torch.kernels.ref.flash_attention_ref`).
 There is no other path.
+
+Under autograd (grad mode on and q, k or v requiring grad) the call goes
+through :class:`FlashAttentionFunction`: the same forward, and a backward
+that recomputes the attention through the port's ``"chunked_causal"``
+twin (:func:`repro_torch.models.attention._chunked_attention`, each query
+row checkpointed) and differentiates it.  That is the gradient the JAX
+package computes (its ``"pallas"`` impl falls back to the same twin under
+``jax.grad``: the Pallas kernel has no backward); there is no backward
+kernel.  A block recomputed by ``torch.utils.checkpoint`` does not launch
+the kernel again: :func:`keep_outputs` (the checkpoint's ``context_fn``)
+records each launch's output in the forward and hands them back, in
+order, to the recompute; and the launch is the operator
+``repro_torch::flash_attention`` (:func:`flash_attention_op`), which
+selective checkpointing can name to keep its output.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Optional
 
 import torch
@@ -69,16 +84,29 @@ def _check(q, k, v, q_pos, kv_pos, window):
 
 
 def flash_attention(q, k, v, q_pos, kv_pos, *,
-                    window: Optional[int] = None) -> torch.Tensor:
+                    window: Optional[int] = None,
+                    chunk: int = 1024) -> torch.Tensor:
     """Causal (optionally windowed) GQA attention with an online softmax.
 
     q: (B, T, H, D); k, v: (B, S, Hkv, D), float32 or bfloat16; q_pos
     (B, T) and kv_pos (B, S) int32.  Key j is visible to query i iff
     ``kv_pos[j] <= q_pos[i]`` (and ``kv_pos[j] > q_pos[i] - window``).
-    Returns (B, T, H, D) in q's dtype.  ``flash_attention.launches``
-    counts CUDA kernel launches.
+    Returns (B, T, H, D) in q's dtype.  With grad mode on and q, k or v
+    requiring grad the output has a ``grad_fn``
+    (:class:`FlashAttentionFunction`; ``chunk`` is its backward's kv and
+    query block).  ``flash_attention.launches`` counts CUDA kernel
+    launches (forward only: the backward launches none).
     """
     _check(q, k, v, q_pos, kv_pos, window)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFunction.apply(q, k, v, q_pos, kv_pos, window,
+                                            chunk)
+    return _forward(q, k, v, q_pos, kv_pos, window)
+
+
+def _forward(q, k, v, q_pos, kv_pos, window):
+    """The kernel on a CUDA tensor, the plain version on a CPU tensor."""
     dev = q.device
     if dev.type == "cpu":
         return flash_attention_ref(q, k, v, q_pos, kv_pos, window=window)
@@ -109,3 +137,95 @@ def flash_attention(q, k, v, q_pos, kv_pos, *,
 
 
 flash_attention.launches = 0
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       q_pos: torch.Tensor, kv_pos: torch.Tensor,
+                       window: int) -> torch.Tensor:
+    """The forward launch as an operator (``window`` 0 = none), the one
+    :class:`FlashAttentionFunction` calls: a checkpoint policy names it
+    (``torch.ops.repro_torch.flash_attention.default``) to keep its
+    output."""
+    return _forward(q, k, v, q_pos, kv_pos, window or None)
+
+
+#: per thread: None, or ("record", outputs) while a checkpointed forward
+#: runs, or ("replay", outputs, cursor) while the checkpoint recomputes it
+_kept = threading.local()
+
+
+class _Keeping:
+    """Sets the thread's :data:`_kept` state while entered; can be entered
+    any number of times (a checkpoint recomputes once per backward that
+    reaches it), and each replay entry starts at the first output."""
+
+    def __init__(self, mode, outputs):
+        self.mode, self.outputs, self.prev = mode, outputs, []
+
+    def __enter__(self):
+        self.prev.append(getattr(_kept, "state", None))
+        _kept.state = ((self.mode, self.outputs) if self.mode == "record"
+                       else (self.mode, self.outputs, [0]))
+
+    def __exit__(self, *exc):
+        _kept.state = self.prev.pop()
+
+
+def keep_outputs():
+    """``(forward, recompute)`` context managers for the ``context_fn`` of
+    ``torch.utils.checkpoint`` (non-reentrant): under the first each
+    :class:`FlashAttentionFunction` forward records its output; under
+    the second, the recompute, each takes the recorded outputs back in
+    order instead of launching, from the first again at every recompute
+    (a second backward through the same graph recomputes again).  The
+    outputs stay alive as long as the checkpoint's saved state does (one
+    (B, T, H, D) tensor a call)."""
+    outputs: list = []
+    return _Keeping("record", outputs), _Keeping("replay", outputs)
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """:func:`flash_attention` under autograd.
+
+    Forward: the kernel (a CPU tensor: the plain version) through
+    :func:`flash_attention_op`, or, in a checkpoint's recompute under
+    :func:`keep_outputs`, the output the forward recorded; saves q, k, v
+    and the positions.
+    Backward: recomputes the attention under ``torch.enable_grad()``
+    through the ``"chunked_causal"`` twin at ``chunk`` (query rows
+    checkpointed, so it holds O(T * chunk) scores, not O(T^2)) and returns
+    ``torch.autograd.grad`` of it: the gradient JAX takes of the same
+    twin.  No kernel is launched in the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, kv_pos, window, chunk):
+        ctx.save_for_backward(q, k, v, q_pos, kv_pos)
+        ctx.window, ctx.chunk = window, chunk
+        state = getattr(_kept, "state", None)
+        if state is not None and state[0] == "replay":
+            cursor = state[2]
+            cursor[0] += 1
+            return state[1][cursor[0] - 1].detach()
+        out = torch.ops.repro_torch.flash_attention(q, k, v, q_pos, kv_pos,
+                                                    window or 0)
+        if state is not None:
+            state[1].append(out.detach())
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        from ..models.attention import _chunked_attention
+
+        q, k, v, q_pos, kv_pos = ctx.saved_tensors
+        wanted = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(w)
+                   for t, w in zip((q, k, v), wanted)]
+            out = _chunked_attention(*ins, q_pos, kv_pos, ctx.window,
+                                     ctx.chunk, triangular=True,
+                                     remat_rows=True)
+            grads = iter(torch.autograd.grad(
+                out, [t for t in ins if t.requires_grad], grad_out))
+        return (*(next(grads) if w else None for w in wanted), None, None,
+                None, None)

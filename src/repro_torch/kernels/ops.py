@@ -1,9 +1,10 @@
 """Front doors of the port's kernels, counterpart of :mod:`repro.kernels.ops`.
 
-* ``flash_attention(q, k, v, q_pos, kv_pos, *, window=None)`` — the flash
-  kernel (:mod:`repro_torch.kernels.flash_attention`; ``repro``'s
-  ``ops.flash_attention`` without its ``chunk`` and ``interpret``: the
-  CUDA kernel has its own tile, and a CPU tensor runs the plain version).
+* ``flash_attention(q, k, v, q_pos, kv_pos, *, window=None, chunk=1024)``
+  — the flash kernel (:mod:`repro_torch.kernels.flash_attention`;
+  ``repro``'s ``ops.flash_attention`` without its ``interpret``: a CPU
+  tensor runs the plain version.  The CUDA kernel has its own tile;
+  ``chunk`` is the block of the backward's recompute under autograd).
 * The arc flags and range counts the CSR census kernel reads
   (:func:`build_arc_flags_device`, host twin :func:`build_arc_flags`).
 * Tile construction for the census tile kernel: the transpose CSR and the

@@ -1,5 +1,6 @@
-"""Attention: GQA (the dense reference, the flash kernel, single-token
-decode) and MLA (compressed KV with the absorbed decode path).
+"""Attention: GQA (the dense reference, the flash kernel, the chunked
+flash-style twins, single-token decode) and MLA (compressed KV with the
+absorbed decode path).
 
 Counterpart of :mod:`repro.models.attention`.  Projection weights are
 ``nn.Linear`` in PyTorch's (out, in) layout over the flattened head dim
@@ -16,6 +17,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config.base import ModelConfig, RunConfig
 from ..kernels import ops as kops
@@ -98,20 +100,121 @@ def _decode_attention(q, k, v, q_pos, kv_pos, window):
     return out.reshape(q.shape)
 
 
+def _blocks(n: int, size: int) -> "list[tuple[int, int]]":
+    """(start, end) of ``size``-long blocks over ``n``; the last may be
+    shorter."""
+    return [(a, min(a + size, n)) for a in range(0, n, size)]
+
+
+def _block_bounds(pos: torch.Tensor, size: int):
+    """(min, max) of ``pos`` (B, n) over each ``size``-long block: (B,
+    n_blocks) each."""
+    B, n = pos.shape
+    nb = -(-n // size)
+    # the ragged last block repeats its last element (neutral to min/max)
+    idx = torch.arange(nb * size, device=pos.device).clamp_(max=n - 1)
+    blocks = pos[:, idx].view(B, nb, size)
+    return blocks.amin(-1), blocks.amax(-1)
+
+
+def _visible_blocks(q_pos, kv_pos, window, q_size, kv_size):
+    """(n_q, n_kv) host list: False where no query of q block i can see
+    any key of kv block j (every key after the block's last query, or,
+    with a window, at or before its first query's window start), for any
+    batch row.  Decided by position, never by row index, so a write into a
+    cache at any ``cache_pos`` (a ring too) skips only what is invisible.
+    One device-to-host copy of a small bool table."""
+    q_min, q_max = _block_bounds(q_pos, q_size)
+    kv_min, kv_max = _block_bounds(kv_pos, kv_size)
+    vis = kv_min[:, None, :] <= q_max[:, :, None]
+    if window is not None:
+        vis &= kv_max[:, None, :] > q_min[:, :, None] - window
+    return vis.any(0).tolist()
+
+
+def _flash_rows(qg, k, v, q_pos, kv_pos, window, blocks):
+    """Online softmax over the kv ``blocks`` ((start, end) key ranges) for
+    one query block, as JAX's ``_flash_rows``: q scaled in its own dtype,
+    scores and the running max, sum and accumulator in f32, the weights
+    cast to v's dtype before the weighted sum (f32 accumulation).
+
+    qg (B, Tq, Hkv, G, hd); k, v (B, S, Hkv, hd).  Returns (B, Tq, Hkv, G,
+    hd) f32.  A query that sees no key of the blocks gets 0."""
+    B, Tq, Hkv, G, hd = qg.shape
+    qf = (qg * (1.0 / math.sqrt(hd))).to(qg.dtype).float()
+    m = qf.new_full((B, Hkv, G, Tq), NEG_INF)
+    l = qf.new_zeros((B, Hkv, G, Tq))
+    acc = qf.new_zeros((B, Hkv, G, Tq, hd))
+    for a, b in blocks:
+        s = torch.einsum("btkgd,bskd->bkgts", qf, k[:, a:b].float())
+        s = s + _bias(q_pos, kv_pos[:, a:b], window)[:, None, None]
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        vc = v[:, a:b]
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgts,bskd->bkgtd", p.to(vc.dtype).float(), vc.float())
+        m = m_new
+    out = acc / l.clamp(min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4)
+
+
+def _chunked_attention(q, k, v, q_pos, kv_pos, window, chunk, *,
+                       triangular, remat_rows=False):
+    """JAX's ``_chunked_attention`` in torch ops: the queries in blocks of
+    ``min(chunk, T)``, each an online softmax (:func:`_flash_rows`) over
+    kv blocks of ``min(chunk, S)`` keys; a ragged last block of either is
+    shorter (JAX shrinks the chunk to ``gcd(T, chunk)`` instead).
+
+    ``triangular=True`` (``"chunked_causal"``) skips the kv blocks that no
+    query of the row sees, decided by position (:func:`_visible_blocks`):
+    the reference slices kv by the query row's index, which is right only
+    for a write at ``cache_pos`` 0.  ``remat_rows`` recomputes each row's
+    kv loop in the backward (``torch.utils.checkpoint``), so the backward
+    holds one row's scores at a time: O(T * chunk), not O(T^2).  Returns
+    (B, T, H, hd) in v's dtype."""
+    B, T, H, hd = q.shape
+    S = k.shape[1]
+    q_blocks = _blocks(T, min(chunk, T))
+    kv_blocks = _blocks(S, min(chunk, S))
+    vis = (_visible_blocks(q_pos, kv_pos, window, min(chunk, T),
+                           min(chunk, S)) if triangular else None)
+    qg = _grouped(q, k)
+    outs = []
+    for i, (a, b) in enumerate(q_blocks):
+        blocks = (kv_blocks if vis is None
+                  else [blk for blk, seen in zip(kv_blocks, vis[i]) if seen])
+        args = (qg[:, a:b], k, v, q_pos[:, a:b], kv_pos, window, blocks)
+        outs.append(checkpoint(_flash_rows, *args, use_reentrant=False,
+                               preserve_rng_state=False)
+                    if remat_rows else _flash_rows(*args))
+    return torch.cat(outs, 1).reshape(B, T, H, hd).to(v.dtype)
+
+
 def attention_core(q, k, v, q_pos, kv_pos, *, impl: str,
-                   window: Optional[int]):
+                   window: Optional[int], chunk: int = 1024,
+                   remat_rows: bool = False):
     """q (B, T, H, hd), k/v (B, S, Hkv, hd) -> (B, T, H, hd).
 
     One query against a longer cache takes the decode path whatever
     ``impl`` says (as in JAX); ``"flash"`` is the CUDA kernel (its plain
-    version on a CPU tensor), ``"dense"`` the einsum reference.
+    version on a CPU tensor; under autograd its backward recomputes
+    through the ``"chunked_causal"`` twin at ``chunk``), ``"dense"`` the
+    einsum reference, ``"chunked"`` and ``"chunked_causal"`` the twins
+    (:func:`_chunked_attention`, rectangular and triangular).
     """
     if q.shape[1] == 1 and k.shape[1] > 1:
         return _decode_attention(q, k, v, q_pos, kv_pos, window)
     if impl == "dense":
         return _dense_attention(q, k, v, q_pos, kv_pos, window)
     if impl == "flash":
-        return kops.flash_attention(q, k, v, q_pos, kv_pos, window=window)
+        return kops.flash_attention(q, k, v, q_pos, kv_pos, window=window,
+                                    chunk=chunk)
+    if impl in ("chunked", "chunked_causal"):
+        return _chunked_attention(q, k, v, q_pos, kv_pos, window, chunk,
+                                  triangular=impl == "chunked_causal",
+                                  remat_rows=remat_rows)
     raise ValueError(f"unknown attention impl {impl!r}")
 
 
@@ -119,14 +222,30 @@ class AttentionCore(nn.Module):
     """:func:`attention_core` as a module (no weights): the seam a forward
     hook uses to see each layer's q, k, v, positions and output."""
 
-    def __init__(self, impl: str, window: Optional[int]):
+    def __init__(self, run: RunConfig, window: Optional[int]):
         super().__init__()
-        self.impl = impl
+        self.impl = run.attention_impl
+        self.chunk = run.attention_chunk
+        self.remat_rows = run.remat_attention
         self.window = window
 
     def forward(self, q, k, v, q_pos, kv_pos):
         return attention_core(q, k, v, q_pos, kv_pos, impl=self.impl,
-                              window=self.window)
+                              window=self.window, chunk=self.chunk,
+                              remat_rows=self.remat_rows)
+
+
+def _ring_loss(T: int, cache_pos: int, S: int, window: Optional[int]) -> bool:
+    """Whether a write of T keys at ``cache_pos`` (positions ``cache_pos``
+    onward, slot = position mod S) overwrites a key that an earlier query
+    of the same write still sees.  New key j replaces the key at position
+    ``cache_pos + j - S`` (a real key once that is >= 0), which query i <
+    j sees unless the window has passed it: ``j - S > i - window``, so at
+    i = 0 when ``j > S - window``."""
+    first = max(1, S - cache_pos)  # the first j that replaces a real key
+    if window is not None:
+        first = max(first, S - window + 1)
+    return T - 1 >= first
 
 
 class GQA(nn.Module):
@@ -143,7 +262,7 @@ class GQA(nn.Module):
         if cfg.qk_norm:
             self.q_norm = nn.Parameter(torch.ones(hd))
             self.k_norm = nn.Parameter(torch.ones(hd))
-        self.core = AttentionCore(run.attention_impl, cfg.sliding_window)
+        self.core = AttentionCore(run, cfg.sliding_window)
 
     @staticmethod
     def _proj(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
@@ -154,8 +273,10 @@ class GQA(nn.Module):
                 cache: Optional[AttnCache] = None, cache_pos: int = 0):
         """x (B, T, d), positions (B, T) int32.  With a cache (one layer's
         k, v (B, S, Hkv*hd) and pos (B, S)), the new keys are written at
-        slots ``cache_pos % S`` onward and the whole cache is attended.
-        Returns ``(out (B, T, d), cache)``."""
+        slots ``cache_pos % S`` onward and the whole cache is attended.  A
+        write of T > 1 keys that would overwrite a ring slot whose key an
+        earlier query of the same write still sees raises (the keys are
+        attended after the write).  Returns ``(out (B, T, d), cache)``."""
         cfg = self.cfg
         B, T, _ = x.shape
         hd, H, Hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
@@ -176,6 +297,10 @@ class GQA(nn.Module):
             if write + T > S:
                 raise ValueError(f"{T} new keys at slot {write} overflow a "
                                  f"cache of {S} slots")
+            if _ring_loss(T, cache_pos, S, cfg.sliding_window):
+                raise ValueError(f"{T} new keys at position {cache_pos} "
+                                 f"overwrite keys of a {S}-slot ring that "
+                                 "earlier queries of the write still see")
             cache.k[:, write:write + T] = k.reshape(B, T, Hkv * hd)
             cache.v[:, write:write + T] = v.reshape(B, T, Hkv * hd)
             cache.pos[:, write:write + T] = positions
@@ -248,7 +373,7 @@ class MLA(nn.Module):
                               bias=False)
         self.wv_b = nn.Linear(m.kv_lora_rank, H * m.v_head_dim, bias=False)
         self.wo = nn.Linear(H * m.v_head_dim, d, bias=False)
-        self.core = AttentionCore(run.attention_impl, None)
+        self.core = AttentionCore(run, None)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 cache: Optional[MLACache] = None, cache_pos: int = 0):

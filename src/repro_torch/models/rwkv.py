@@ -70,9 +70,14 @@ def wkv_chunked(r, k, v, w_log, u, chunk: int, state0=None):
     """r, k, v, w_log: (B, T, H, D); u: (H, D); state0: (B, H, D, D) or
     None (zeros).  Returns ``(o (B, T, H, D), final state (B, H, D, D))``,
     both f32.  Chunks of ``min(chunk, T)`` steps; the last one takes what
-    is left."""
+    is left.  The (B, L, L, H, D) decay tensor is built in place unless
+    autograd records (grad mode on and an input requiring grad): then the
+    same passes run out of place, with the same numbers."""
     B, T, H, D = r.shape
     L = min(chunk, T)
+    grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (r, k, v, w_log, u,
+                                                    state0))
     rf, kf, vf, wf = (t.float() for t in (r, k, v, w_log))
     S = (rf.new_zeros((B, H, D, D)) if state0 is None else state0.float())
     os_ = []
@@ -87,8 +92,13 @@ def wkv_chunked(r, k, v, w_log, u, chunk: int, state0=None):
         # exp never overflows (a factorized e^{E_t} e^{-Λ_s} would under
         # saturating decay)
         diff = lam_ex[:, :, None] - lam[:, None, :]  # (B, L(t), L(s), H, D)
-        dmat = diff.clamp_(max=0.0).exp_().mul_(tri[None, :, :, None, None])
-        A = torch.einsum("blhd,blshd->bhls", rc, dmat.mul_(kc[:, None]))
+        if grad:  # autograd needs exp's output: no pass in place
+            dmat = diff.clamp(max=0.0).exp() * tri[None, :, :, None, None]
+            dmat = dmat * kc[:, None]
+        else:
+            dmat = diff.clamp_(max=0.0).exp_().mul_(
+                tri[None, :, :, None, None]).mul_(kc[:, None])
+        A = torch.einsum("blhd,blshd->bhls", rc, dmat)
         o_intra = torch.einsum("bhls,bshd->blhd", A, vc)
         bonus = (rc * (u * kc)).sum(-1)  # (B, L, H)
         o_intra = o_intra + bonus[..., None] * vc

@@ -14,6 +14,13 @@ for the hybrid, ...); the module holds the leading dense blocks in
 ``tail`` (all ``nn.ModuleList``) and its shared block in ``shared``, and is
 built from such a table by :func:`repro_torch.models.convert.from_jax_params`.
 The cache is the JAX package's tree (:func:`init_cache`), updated in place.
+
+Remat follows JAX's ``make_forward``: under autograd without a cache, each
+stacked block (RWKV's and the attention families' ``layers``; the hybrid's
+super-block of ``attn_every`` Mamba2 blocks and the shared block) runs
+under ``torch.utils.checkpoint`` (:func:`remat`); the leading dense blocks
+and the hybrid's tail do not.  A recomputed block takes the flash
+kernel's recorded output instead of launching it again.
 """
 from __future__ import annotations
 
@@ -22,9 +29,12 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..config.base import ModelConfig, RunConfig
 from ..core.graph import resolve_device
+from ..kernels.flash_attention import keep_outputs
 from .attention import (GQA, MLA, SENTINEL, AttnCache, MLACache, attn_defs,
                         mla_defs)
 from .layers import MLP, mlp_defs, rms_norm
@@ -178,6 +188,38 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     return cache
 
 
+def _dots_contexts():
+    """Selective checkpointing for ``"dots"``: the matmul outputs (``mm``,
+    ``addmm``, ``bmm``) are kept, the counterpart of JAX's
+    ``checkpoint_dots_with_no_batch_dims`` (which keeps the unbatched dots
+    only), and so is the flash kernel's output (its operator), so a
+    recomputed block does not launch it again; the rest is recomputed."""
+    aten = torch.ops.aten
+    return create_selective_checkpoint_contexts(
+        [aten.mm.default, aten.addmm.default, aten.bmm.default,
+         torch.ops.repro_torch.flash_attention.default])
+
+
+def remat(fn, mode: str):
+    """``fn`` under ``torch.utils.checkpoint`` (non-reentrant) for
+    ``mode`` ``"full"`` (everything recomputed in the backward but the
+    flash kernel's outputs: :func:`~repro_torch.kernels.flash_attention.
+    keep_outputs`) or ``"dots"`` (:func:`_dots_contexts`); ``fn`` itself
+    for ``"none"`` or without grad mode.  ``"full"`` adds no cost per op;
+    selective checkpointing dispatches every op of the block through
+    Python (zamba2-1.2b's train step at B 1 x 4,096 on an H100: 9.5 s
+    under it, 5.0 s without; ``PERF.md``)."""
+    if mode == "none" or not torch.is_grad_enabled():
+        return fn
+    contexts = keep_outputs if mode == "full" else _dots_contexts
+
+    def run(*args):  # the blocks draw no random numbers: no RNG state
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, context_fn=contexts)
+
+    return run
+
+
 def _at(tree, *idx):
     """A view of one block's cache in a stacked cache tree (a dict or
     cache tuple of tensors with leading dims ``idx``)."""
@@ -299,6 +341,18 @@ class Transformer(nn.Module):
             return [self.shared.attn.core] * zamba_plan(self.cfg)[0]
         return [blk.attn.core for blk in self.blocks()]
 
+    def _super_block(self, x, positions, s, cache, cache_pos):
+        """The hybrid's super-block ``s``: its ``per`` Mamba2 blocks, then
+        the shared block with that site's attention cache.  Returns ``(x,
+        aux)``."""
+        per = self.cfg.ssm.attn_every
+        for j in range(per):
+            c = None if cache is None else _at(cache["mamba"], s, j)
+            x = self.layers[s * per + j](x, c)
+        c = None if cache is None else _at(cache["attn"], s)
+        x, _, a = self.shared(x, positions, c, cache_pos)
+        return x, a
+
     def forward(self, tokens: torch.Tensor, positions: torch.Tensor,
                 cache: Optional[dict] = None, cache_pos: int = 0, *,
                 prefix_embeds: Optional[torch.Tensor] = None):
@@ -319,17 +373,15 @@ class Transformer(nn.Module):
                                 device=tokens.device).expand(B, P)
             positions = torch.cat([ppos, positions + P], dim=1)
         aux = torch.zeros((), device=x.device)
+        mode = self.run.remat if cache is None else "none"
         if self.cfg.rwkv is not None:
             for i, block in enumerate(self.layers):
-                x = block(x, None if cache is None else _at(cache, i))
+                x = remat(block, mode)(x, None if cache is None
+                                       else _at(cache, i))
         elif self.cfg.ssm is not None:
-            n_super, per, _ = zamba_plan(self.cfg)
-            for s in range(n_super):
-                for j in range(per):
-                    c = None if cache is None else _at(cache["mamba"], s, j)
-                    x = self.layers[s * per + j](x, c)
-                c = None if cache is None else _at(cache["attn"], s)
-                x, _, a = self.shared(x, positions, c, cache_pos)
+            for s in range(zamba_plan(self.cfg)[0]):
+                x, a = remat(self._super_block, mode)(x, positions, s, cache,
+                                                      cache_pos)
                 aux = aux + a
             for t, block in enumerate(self.tail):
                 x = block(x, None if cache is None else cache["tail"][t])
@@ -340,7 +392,7 @@ class Transformer(nn.Module):
                 aux = aux + a
             for i, block in enumerate(self.layers):
                 c = None if cache is None else _at(cache["layers"], i)
-                x, _, a = block(x, positions, c, cache_pos)
+                x, _, a = remat(block, mode)(x, positions, c, cache_pos)
                 aux = aux + a
         x = rms_norm(x, self.final_ln, self.cfg.norm_eps)
         w = (self.embed.weight if self.cfg.tie_embeddings
