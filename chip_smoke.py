@@ -202,10 +202,42 @@ script exits non-zero and prints no result.  Phases:
              ms, tokens/s, peak memory; flash launches a step = the
              forward's attention calls, 16 and 6), one profiled step
              (device time by label and kernel kind, idle share).
+   sharded_train — on a one-rank ``nccl`` group's ``(1, 1)`` mesh, the
+             qwen3-4b train cell of ``TRAIN`` through the launcher's setup
+             (``launch.train.train_setup``: the rules, every parameter
+             and moment a DTensor, the attention core through
+             ``local_map``) against the unsharded cell from the same
+             seed (a one-rank mesh runs the same local ops): the step-0
+             loss and every parameter after it within ONE_RANK_TOL;
+             each forward flash call within 2e-2 scaled of the plain
+             version, 16 launches in the forward and 16 a step (none in
+             the backward); step ms of both, one sharded step profiled;
+             both models at SHARDED_TURNS_LAYERS layers timed in turns.
+   elastic — that sharded model's whole trees on the host (what a
+             checkpoint holds) placed back by ``reshard_tree`` into a
+             fresh sharded model: its next step's parameters within
+             ONE_RANK_TOL of the uninterrupted one's.
+   sharded_prefill — qwen3-4b at full width and depth, B 4 x 2,048,
+             ``make_prefill_step(cfg, run, mesh, rules)`` against the
+             unsharded prefill: logits within ONE_RANK_TOL of their
+             largest magnitude, 36 flash launches each; cold, then warm
+             in turns.
+   examples — each ``examples/*_torch.py`` twin's ``main`` on the card
+             (``EXAMPLES``; Slashdot's at its published size, serve_decode
+             at qwen3-4b's full width): censuses equal to ``"search"``
+             and summing to C(n, 3), census_csr launched; greedy tokens
+             equal to a replay through ``make_serve_step``, 36 flash
+             launches a prefill.
+   dryrun  — ``launch.census_dryrun`` for Slashdot and Patents at their
+             published sizes on the ``{"data": 16, "model": 16}`` shape
+             (per-rank dyads, bytes, census_csr's bound), then the
+             meta-device sweep of all 80 (arch x shape x mesh shape)
+             cells; each phase's seconds.
 9. the kernels line (census_csr's row adds its launches in the fused,
    fleet, session, dynamic, reorder, faults, partition, distributed (per
-   rank) and patents phases; flash_attention's its launches per prefill
-   for every architecture, per train step, and its MLA and window
+   rank), patents and example phases; flash_attention's its launches per
+   prefill for every architecture, per train step, per sharded train
+   step and sharded prefill, the serving twin's, and its MLA and window
    timings and gradient checks), then the result line.
 
 Exits non-zero without a CUDA device.
@@ -295,6 +327,24 @@ TRAIN = {"qwen3-4b": dict(layers=16, flash=16),
          "zamba2-1.2b": dict(layers=38, flash=6)}
 TRAIN_STEPS = 3  # timed, after one checked warm-up step
 TRAIN_CHUNK = 1024
+# the sharded path on a one-rank nccl (data, model) = (1, 1) mesh: the
+# qwen3-4b train cell of TRAIN through the launcher's setup; the in-turns
+# timing and the elastic restore at SHARDED_TURNS_LAYERS (both models on
+# the card at once); the launcher's schedule over SHARDED_TOTAL steps
+SHARDED_TURNS_LAYERS = 8
+SHARDED_TOTAL = 50
+# a one-rank mesh runs the same local ops as the unsharded model, so its
+# loss, parameters and logits must equal the unsharded ones: within this,
+# scaled (a loss or logits) or absolute (a parameter)
+ONE_RANK_TOL = 1e-5
+# the example twins on the card: name -> arguments
+EXAMPLES = {
+    "multi_analytic_torch": ["--backend", "pallas"],
+    "census_service_fleet_torch": ["--backend", "pallas"],
+    "evolving_graph_torch": ["--backend", "pallas"],
+    "triad_census_sna_torch": ["--scale-down", "1"],
+    "serve_decode_torch": ["--full"],
+}
 # the f32 gradient check: qwen3-4b at full width, 2 layers, B 1 x this
 TRAIN_F32_T = 2048
 # the device split of a profiled train step: kernel name substrings
@@ -1026,6 +1076,12 @@ def recurrent_leaves(cache):
     return [] if "layers" in cache else list(cache.values())
 
 
+def whole(t):
+    """A DTensor's whole tensor (a collective), any other tensor as it
+    is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
 @contextlib.contextmanager
 def held_to_plain(torch, calls, errs):
     """While entered, every call of an attention core in ``calls`` appends
@@ -1033,9 +1089,9 @@ def held_to_plain(torch, calls, errs):
     version on that call's own inputs) to ``errs``.  One hook per core:
     the hybrid's shared core is called once per super-block."""
     def hook(core, args, out):
-        with torch.no_grad():
-            errs.append(plain_error(torch, out.detach(),
-                                    *(a.detach() for a in args),
+        with torch.no_grad():  # a sharded core's DTensors taken whole
+            errs.append(plain_error(torch, whole(out.detach()),
+                                    *(whole(a.detach()) for a in args),
                                     core.window))
 
     hooks = [core.register_forward_hook(hook)
@@ -1764,6 +1820,471 @@ def train_phase(torch, dev):
             for arch, spec in TRAIN.items()}
     return ({arch: r["flash_launches_per_step"][0] for arch, r in
              recs.items()}, grad["bfloat16"]["max_abs_err"], grad)
+
+
+@contextlib.contextmanager
+def one_rank_group(torch):
+    """A one-rank ``nccl`` process group in this process (a free localhost
+    port), destroyed on exit: the sharded phases' mesh is ``(1, 1)``."""
+    import datetime
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def step_diff(torch, got, want, lr):
+    """A step's parameters (name -> tensor, DTensors taken whole) against
+    another's (name -> host tensor): (worst abs difference, elements
+    beyond 1e-5, elements); checks every difference within 2 lr (Adam's
+    first step moves an element by lr whatever its gradient's size, so a
+    near-zero gradient whose sign rounds the other way moves it 2 lr)."""
+    worst, off, total = 0.0, 0, 0
+    for k, w in want.items():
+        with torch.no_grad():
+            d = (whole(got[k].detach()).cpu() - w).abs()
+        worst = max(worst, float(d.max()))
+        off += int((d > 1e-5).sum())
+        total += d.numel()
+    check(worst <= 2 * lr, f"a parameter moved {worst} apart, past 2 lr")
+    return worst, off, total
+
+
+def train_batches(torch, dev, cfg, n):
+    """``n`` rows of ``SHAPES["train_4k"]`` from ``SyntheticTokens``."""
+    from repro_torch.config import SHAPES
+    from repro_torch.data import SyntheticTokens
+
+    shape = SHAPES["train_4k"]
+    ds = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=shape.seq_len,
+                         global_batch=shape.global_batch,
+                         n_shards=shape.global_batch)
+    return [{"tokens": torch.from_numpy(ds.batch_at(i)).to(dev)}
+            for i in range(n)]
+
+
+def timed_steps(torch, step, model, opt, batches):
+    """(model, opt, step ms each, flash launches each)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    ms, launches = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        model, opt, mets = step(model, opt, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(flash_attention.launches)
+        check(math.isfinite(float(mets["loss"])), "a non-finite loss")
+    return model, opt, ms, launches
+
+
+def free(torch):
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def sharded_train_phase(torch, dev):
+    """qwen3-4b's train cell (``TRAIN``: 16 layers, B 1 x 4,096, f32
+    parameters, bf16 compute, remat "full", flash at chunk 1,024) through
+    the launcher's setup (``launch.train.train_setup``: the (1, 1) mesh,
+    the rules, every parameter and moment a DTensor) against the same cell
+    unsharded from the same seed: the loss of step 0 and every parameter
+    after it within ONE_RANK_TOL; one forward's flash calls held to the
+    plain version (2e-2 scaled), 16 launches in it and 16 in a step (none
+    in the backward); step ms of each; one sharded step profiled (device
+    split by label and kernel kind, idle share).  Then both at
+    SHARDED_TURNS_LAYERS layers on the card at once, timed in turns (the
+    DTensor dispatch cost), and the elastic restore: the sharded model's
+    trees (JAX keys, whole, on the host: what a checkpoint holds) placed
+    back on the mesh by ``reshard_tree`` into a fresh sharded model, whose
+    next step's parameters are within ONE_RANK_TOL of the uninterrupted
+    model's.  Returns the flash launches a sharded step."""
+    from repro_torch.config import RunConfig, get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.train import train_setup
+    from repro_torch.models.convert import from_jax_params
+    from repro_torch.models.params import param_specs
+    from repro_torch.models.transformer import init_model, model_defs
+    from repro_torch.train import (adamw_init, make_loss_fn, make_train_step,
+                                   restore_train_state, train_state)
+    from repro_torch.train.elastic import reshard_tree
+    from repro_torch.train.optimizer import cosine_schedule
+
+    spec = TRAIN[ARCH]
+    run = RunConfig(attention_impl="flash", attention_chunk=TRAIN_CHUNK,
+                    remat="full", param_dtype="float32",
+                    compute_dtype="bfloat16")
+    warmup = max(2, SHARDED_TOTAL // 10)
+
+    def unsharded(cfg):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        model = from_jax_params(cfg, init_model(cfg, gen, torch.float32),
+                                run=run, device=dev, trainable=True)
+        return (model, adamw_init(dict(model.named_parameters())),
+                make_train_step(cfg, run, total_steps=SHARDED_TOTAL,
+                                warmup=warmup))
+
+    def lr_at(step):
+        return float(cosine_schedule(step, run.learning_rate, warmup=warmup,
+                                     total=SHARDED_TOTAL))
+
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=spec["layers"])
+    batches = train_batches(torch, dev, cfg, TRAIN_STEPS + 1)
+    free(torch)
+    model, opt, step = unsharded(cfg)
+    model, opt, mets = step(model, opt, batches[0])
+    loss_ref = float(mets["loss"])
+    ref = {k: whole(p.detach()).to("cpu", copy=True)
+           for k, p in model.named_parameters()}
+    model, opt, ref_ms, _ = timed_steps(torch, step, model, opt, batches[1:])
+    del model, opt, step
+    free(torch)
+
+    t0 = time.perf_counter()
+    model, opt, step, mesh, rules = train_setup(cfg, run, dev,
+                                                total_steps=SHARDED_TOTAL)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    check(tuple(mesh.shape) == (1, 1) and model.mesh is mesh,
+          f"sharded train: mesh {mesh}")
+    check(all(hasattr(p, "placements") for p in model.parameters()),
+          "sharded train: a parameter is not a DTensor")
+    errs = []
+    flash_attention.launches = 0
+    with held_to_plain(torch, model.attention_calls(), errs):
+        loss, _ = make_loss_fn(cfg, run, mesh, rules)(model, batches[0])
+        torch.cuda.synchronize()
+    fwd_launches = flash_attention.launches
+    del loss
+    worst_flash = max((e[1] for e in errs), default=0.0)
+    check(len(errs) == fwd_launches == spec["flash"] and worst_flash < 2e-2,
+          f"sharded train: {len(errs)} flash calls checked, {fwd_launches} "
+          f"launches, want {spec['flash']}; scaled error {worst_flash}")
+    flash_attention.launches = 0
+    model, opt, mets = step(model, opt, batches[0])
+    torch.cuda.synchronize()
+    step_launches = flash_attention.launches
+    loss0 = float(mets["loss"])
+    check(step_launches == spec["flash"],
+          f"sharded train step: {step_launches} flash launches")
+    loss_diff = abs(loss0 - loss_ref)
+    check(loss_diff <= ONE_RANK_TOL * max(1.0, abs(loss_ref)),
+          f"sharded train: step-0 loss {loss0}, unsharded {loss_ref}")
+    worst, off, total = step_diff(torch, dict(model.named_parameters()), ref,
+                                  lr_at(1))
+    check(worst <= ONE_RANK_TOL,
+          f"sharded train: a parameter {worst} from the unsharded step's "
+          f"({off} of {total} past 1e-5)")
+    del ref
+    model, opt, ms, launches = timed_steps(torch, step, model, opt,
+                                           batches[1:])
+    check(launches == [spec["flash"]] * TRAIN_STEPS,
+          f"sharded train: flash launches a step {launches}")
+    peak = torch.cuda.max_memory_allocated()
+    with labelled_training():
+        split = device_split(torch, lambda: step(model, opt, batches[0]))
+    emit("sharded_train", arch=ARCH, layers=cfg.n_layers,
+         mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)), setup_s=setup_s,
+         loss0=loss0, loss0_unsharded=loss_ref, loss0_abs_diff=loss_diff,
+         param_worst_abs_diff=worst, params_past_1e5=off, params=total,
+         flash_checked=len(errs), flash_max_scaled_err=worst_flash,
+         forward_flash_launches=fwd_launches,
+         flash_launches_per_step=[step_launches] + launches,
+         step_ms=ms, unsharded_step_ms=ref_ms, max_memory_allocated=peak)
+    emit("sharded_train_profile", arch=ARCH, **split)
+    del model, opt, step
+    free(torch)
+
+    # both at SHARDED_TURNS_LAYERS layers, in turns; then the elastic
+    # restore of the sharded one
+    cfg = dataclasses.replace(cfg, n_layers=SHARDED_TURNS_LAYERS)
+    u_model, u_opt, u_step = unsharded(cfg)
+    s_model, s_opt, s_step, mesh, rules = train_setup(
+        cfg, run, dev, total_steps=SHARDED_TOTAL)
+    turns = {"unsharded": [], "sharded": []}
+    for b in batches:
+        u_model, u_opt, ms, _ = timed_steps(torch, u_step, u_model, u_opt,
+                                            [b])
+        turns["unsharded"] += ms
+        s_model, s_opt, ms, _ = timed_steps(torch, s_step, s_model, s_opt,
+                                            [b])
+        turns["sharded"] += ms
+    del u_model, u_opt, u_step
+    free(torch)
+    t0 = time.perf_counter()
+    saved = train_state(s_model, s_opt)  # whole trees on the host
+    saved_step = s_opt.step
+    save_s = time.perf_counter() - t0
+    s_model, s_opt, _ = s_step(s_model, s_opt, batches[0])
+    after = {k: whole(p.detach()).to("cpu", copy=True)
+           for k, p in s_model.named_parameters()}
+    del s_model, s_opt, s_step
+    free(torch)
+    model, opt, step, mesh, rules = train_setup(cfg, run, dev,
+                                                total_steps=SHARDED_TOTAL)
+    del opt  # the restore brings the moments
+    t0 = time.perf_counter()
+    specs = param_specs(model_defs(cfg), rules)
+    placed = reshard_tree(saved, mesh, {t: specs for t in saved})
+    del saved
+    opt = restore_train_state(model, placed, saved_step)
+    del placed
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    model, opt, _ = step(model, opt, batches[0])
+    e_worst, e_off, e_total = step_diff(
+        torch, dict(model.named_parameters()), after, lr_at(saved_step + 1))
+    check(e_worst <= ONE_RANK_TOL,
+          f"elastic: a parameter {e_worst} from the uninterrupted step's "
+          f"({e_off} of {e_total} past 1e-5)")
+    emit("sharded_turns", arch=ARCH, layers=cfg.n_layers, **{
+        f"{k}_step_ms": v for k, v in turns.items()})
+    emit("elastic", arch=ARCH, layers=cfg.n_layers, step=saved_step,
+         host_trees_s=save_s, reshard_restore_s=restore_s,
+         param_worst_abs_diff=e_worst, params_past_1e5=e_off,
+         params=e_total)
+    del model, opt, step, after
+    free(torch)
+    return step_launches
+
+
+def sharded_prefill_phase(torch, dev):
+    """qwen3-4b at full width and depth, bf16, B 4 x 2,048: the cacheless
+    prefill on the (1, 1) mesh (``make_prefill_step(cfg, run, mesh,
+    rules)``) against the unsharded one from the same weights: the logits
+    within ONE_RANK_TOL of their largest magnitude (printed), 36 flash
+    launches
+    each; each model's first (cold) prefill timed, then two more of each
+    in turns (warm), then one more of each profiled.  Returns the sharded
+    prefill's launches."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.config import RunConfig, get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.convert import from_jax_params
+    from repro_torch.models.transformer import init_model
+    from repro_torch.serve import make_prefill_step
+    from repro_torch.sharding.rules import make_rules
+
+    cfg = get_config(ARCH)
+    run = RunConfig(attention_impl="flash", param_dtype="bfloat16",
+                    compute_dtype="bfloat16", remat="none")
+    B, T = SERVE["batch"], SERVE["prompt"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_model(cfg, gen, torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
+                           device=dev, dtype=torch.int32)
+    mesh = init_device_mesh(dev.type, (1, 1),
+                            mesh_dim_names=("data", "model"))
+    rules = make_rules(mesh)
+    steps = {}
+    for label, m in (("unsharded", None), ("sharded", mesh)):
+        model = from_jax_params(cfg, params, run=run, device=dev, mesh=m,
+                                rules=rules if m is not None else None)
+        steps[label] = (model, make_prefill_step(
+            cfg, run, m, None if m is None else rules))
+    out, launches, ms = {}, {}, {"unsharded": [], "sharded": []}
+
+    def prefill(label):
+        model, step = steps[label]
+        flash_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = step(model, tokens)
+        torch.cuda.synchronize()
+        ms[label].append((time.perf_counter() - t0) * 1e3)
+        launches[label] = flash_attention.launches
+        return logits
+
+    # the first (cold) call of each, checked; then in turns, warm; then
+    # one profiled warm prefill of each
+    for label in steps:
+        out[label] = prefill(label)
+    for label in ("unsharded", "sharded", "sharded", "unsharded"):
+        del out[label]
+        out[label] = prefill(label)
+    splits = {}
+    for label, (model, step) in steps.items():
+        splits[label] = device_split(torch, lambda: step(model, tokens))
+    del steps
+    got, want = out["sharded"], out["unsharded"]
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    check(got.shape == want.shape == (B, T, cfg.vocab_size)
+          and err <= ONE_RANK_TOL * scale,
+          f"sharded prefill: logits {tuple(got.shape)} differ by {err} "
+          f"(largest {scale})")
+    check(launches == {"unsharded": cfg.n_layers, "sharded": cfg.n_layers},
+          f"sharded prefill: flash launches {launches}")
+    emit("sharded_prefill", arch=ARCH, batch=B, prompt=T,
+         logits_max_abs_diff=err, logits_max_abs=scale,
+         flash_launches=launches,
+         cold_prefill_ms={k: v[0] for k, v in ms.items()},
+         warm_prefill_ms={k: v[1:] for k, v in ms.items()})
+    for label, split in splits.items():
+        emit("sharded_prefill_profile", arch=ARCH, run=label, **split)
+    del out, got, want, params
+    free(torch)
+    return launches["sharded"]
+
+
+def examples_phase(torch, dev):
+    """Each ``examples/*_torch.py`` twin's ``main`` on the card
+    (``EXAMPLES``): every census it prints equal to a ``"search"`` run on
+    the same graph and summing to C(n, 3), census_csr launched; the greedy
+    tokens of ``serve_decode_torch`` (qwen3-4b, full width) equal to a
+    replay through ``make_serve_step``, one flash launch per layer a
+    prefill.  Returns ``{twin: launches}`` (census_csr, or flash)."""
+    import importlib.util
+
+    import numpy as np
+
+    from repro_torch.engine import EngineConfig, compile
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.triad_census import census_csr
+    from repro_torch.models.transformer import init_cache
+    from repro_torch.serve import make_prefill_cache_step, make_serve_step
+
+    def search(g):
+        return compile(g, ("triad_census",), EngineConfig(
+            backend="search", device=dev)).run(g)["triad_census"].counts
+
+    def exact(name, g, counts):
+        counts = np.asarray(counts)
+        check(np.array_equal(counts, search(g))
+              and int(counts.sum()) == c3(g.n),
+              f"{name}: census {counts.tolist()} != search or C(n, 3)")
+
+    launches = {}
+    for name, args in EXAMPLES.items():
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(ROOT, "examples", name + ".py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        census_csr.launches = flash_attention.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):  # the twins' prints
+            out = mod.main([*args, "--device", str(dev)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if name == "serve_decode_torch":
+            launches[name] = flash_attention.launches
+            cfg, run, model = out["cfg"], out["run"], out["model"]
+            B, P = out["prompts"].shape
+            N = out["tokens"].shape[1]
+            check(launches[name] == cfg.n_layers,
+                  f"{name}: {launches[name]} flash launches")
+            cache = init_cache(cfg, B, P + N, device=dev)
+            logits, cache = make_prefill_cache_step(cfg, run)(
+                model, out["prompts"], cache)
+            tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+            want = [tok]
+            serve = make_serve_step(cfg, run)
+            for i in range(N - 1):
+                tok, cache, _ = serve(model, cache, tok, P + i)
+                want.append(tok)
+            check(torch.equal(out["tokens"], torch.cat(want, 1)),
+                  f"{name}: greedy tokens differ from make_serve_step's")
+            emit("examples", twin=name, seconds=seconds, arch=cfg.name,
+                 layers=cfg.n_layers, d_model=cfg.d_model,
+                 flash_launches=launches[name],
+                 tokens=out["tokens"].shape[1])
+            del out, model, cache, logits
+            free(torch)
+            continue
+        launches[name] = census_csr.launches
+        check(launches[name] > 0, f"{name}: no census_csr launch")
+        if name == "census_service_fleet_torch":
+            for rid, c in out["completions"].items():
+                res = c.result
+                res = res["triad_census"] if isinstance(res, dict) else res
+                exact(name, out["fleet"][rid], res.counts)
+            n = len(out["completions"])
+        elif name == "multi_analytic_torch":
+            exact(name, out["graph"], out["results"]["triad_census"].counts)
+            n = out["graph"].n
+        else:
+            exact(name, out["graph"], out["census"].counts)
+            n = out["graph"].n
+        emit("examples", twin=name, seconds=seconds,
+             census_csr_launches=launches[name],
+             **({"requests": n} if "fleet" in name else {"n": n}))
+        del out
+        free(torch)
+    return launches
+
+
+def dryrun_phase(torch):
+    """The launch dry runs on the host: ``census_dryrun`` for Slashdot and
+    Patents at their published sizes on the ``{"data": 16, "model": 16}``
+    shape (per-rank dyads, bytes and census_csr's bound), then the sweep
+    of every (arch x shape x mesh shape) cell on the ``meta`` device, each
+    with its seconds."""
+    import shutil
+
+    from repro_torch.launch import census_dryrun, sweep
+
+    for name in ("slashdot", "patents"):
+        rec = census_dryrun.run(name, scale_down=1.0)
+        check(rec["status"] == "ok" and rec["ranks"]["n"] == 256
+              and sum(rec["ranks"]["dyads"]) == rec["n_dyads"],
+              f"census dry run {name}: {rec['status']}")
+        b = rec["census_csr_bound"]
+        emit("census_dryrun", dataset=name, mesh=rec["mesh"],
+             n_dyads=rec["n_dyads"], max_deg=rec["max_deg"], K=rec["K"],
+             chunk_l=rec["chunk_l"], imbalance=rec["imbalance"],
+             lane_utilization=rec["lane_utilization"],
+             rank_dyads_max=max(rec["ranks"]["dyads"]),
+             rank_bytes_max=max(rec["ranks"]["bytes"]),
+             census_csr_bound_ms=b["bound_s"] * 1e3,
+             bound_by=b["bound_by"], graph_s=rec["graph_s"],
+             seconds=rec["total_s"])
+    out = os.path.join(ROOT, "build", "dryrun_torch")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        counts = sweep.main(["--out", out, "--force"])
+    check(counts["fail"] == 0 and counts["ok"] + counts["skip"] == 80,
+          f"dry-run sweep: {counts}")
+    emit("dryrun_sweep", cells=counts["ok"] + counts["skip"],
+         ok=counts["ok"], skip=counts["skip"],
+         seconds=time.perf_counter() - t0)
+    shutil.rmtree(out, ignore_errors=True)
+
+
+def sharded_phases(torch, dev):
+    """The sharded train and prefill, the elastic restore (one-rank
+    ``nccl`` group, (1, 1) mesh), the example twins and the dry runs,
+    each phase's seconds emitted.  Returns (flash launches a sharded
+    train step, a sharded prefill, the twins' launches)."""
+    seconds = {}
+    t0 = time.perf_counter()
+    with one_rank_group(torch):
+        train_launches = sharded_train_phase(torch, dev)
+        seconds["sharded_train_and_elastic"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        prefill_launches = sharded_prefill_phase(torch, dev)
+        seconds["sharded_prefill"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    twins = examples_phase(torch, dev)
+    seconds["examples"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dryrun_phase(torch)
+    seconds["dryrun"] = time.perf_counter() - t0
+    emit("sharded_phases_seconds", **seconds)
+    return train_launches, prefill_launches, twins
 
 
 def amazon_phase(torch, dev, rates):
@@ -3737,6 +4258,12 @@ def run(dev) -> int:
     serve_f32_families_phase(torch, dev)
     train_launches, train_err, train_grad = train_phase(torch, dev)
 
+    # 8b. the sharded path, the example twins, the dry runs -----------------
+    sharded_launches, sharded_prefill_launches, twins = sharded_phases(
+        torch, dev)
+    csr_row.update(examples_launches={
+        k: v for k, v in twins.items() if k != "serve_decode_torch"})
+
     # 8. kernels line, result line --------------------------------------------
     flash_row = dict(
         name="flash_attention", route="cuda",
@@ -3750,6 +4277,10 @@ def run(dev) -> int:
         library_ms=flash["library_ms"],
         launches_per_prefill={ARCH: served["launches"], **family_launches},
         launches_per_train_step=train_launches, under_autograd=train_grad,
+        launches_per_sharded_train_step={ARCH: sharded_launches},
+        launches_per_sharded_prefill={ARCH: sharded_prefill_launches},
+        launches_per_example_prefill={
+            "serve_decode_torch": twins["serve_decode_torch"]},
         mla_d192=flash["mla"], window_d120=flash["window"])
     print(json.dumps({"kernels": [csr_row, census_row, flash_row]}),
           flush=True)

@@ -189,7 +189,9 @@ class RunConfig:
     ``"dots"`` keeps the matmul outputs and recomputes the rest,
     ``"none"`` keeps everything.  The optimizer fields, ``grad_compression``
     and ``microbatch`` are JAX's, with JAX's defaults
-    (:mod:`repro_torch.train`).
+    (:mod:`repro_torch.train`), and so are the sharding toggles
+    ``fsdp_axis``, ``seq_shard_decode`` and ``act_shard_model``
+    (:func:`repro_torch.launch.specs.make_cell_rules` reads them).
 
     ``moe_groups`` and ``moe_dense_eval`` are JAX's MoE dispatch knobs
     (:func:`repro_torch.models.moe.moe_apply`), with JAX's defaults: one
@@ -210,6 +212,12 @@ class RunConfig:
     grad_compression: Literal["none", "int8"] = "none"
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
+    # sharding toggles (JAX's): the weights' second axis, the long-decode
+    # cache's sequence over the batch axes, the residual stream's
+    # features over the model axis
+    fsdp_axis: Optional[str] = "data"
+    seq_shard_decode: bool = True
+    act_shard_model: bool = False
     microbatch: Optional[int] = None  # gradient-accumulation steps
     moe_groups: Optional[int] = None  # GShard grouped dispatch (None = flat)
     moe_dense_eval: bool = False  # all experts on every token, no dispatch

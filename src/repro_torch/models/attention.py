@@ -21,6 +21,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config.base import ModelConfig, RunConfig
 from ..kernels import ops as kops
+from ..sharding.rules import axis_sizes, gathered, placements
 from .layers import apply_rope, linear, rms_norm, rope_tables
 from .params import ParamDef
 
@@ -218,9 +219,38 @@ def attention_core(q, k, v, q_pos, kv_pos, *, impl: str,
     raise ValueError(f"unknown attention impl {impl!r}")
 
 
+def head_shards(mesh, n_heads: int, n_kv_heads: int) -> int:
+    """The model axis's size, checked to split both head counts evenly:
+    a rank then holds whole heads, and its q heads are exactly the GQA
+    groups of its kv heads (model = 2, H 32, Hkv 8: rank 0 holds q heads
+    0-15 and kv heads 0-3).  JAX pads an uneven split (GSPMD); a
+    ``local_map`` cannot, so this raises."""
+    model = axis_sizes(mesh).get("model", 1)
+    if n_heads % model or n_kv_heads % model:
+        raise ValueError(f"{n_heads} q heads and {n_kv_heads} kv heads do "
+                         f"not split evenly over a model axis of {model}")
+    return model
+
+
+def _contiguous(grad: torch.Tensor) -> torch.Tensor:
+    """A local gradient leaving ``local_map`` made contiguous: the core's
+    einsums return permuted gradients, and the DTensor ``view`` of the
+    projection's backward cannot take one whose strides swap two dims of
+    equal size (T = the rank's feature width)."""
+    return grad.contiguous()
+
+
 class AttentionCore(nn.Module):
     """:func:`attention_core` as a module (no weights): the seam a forward
-    hook uses to see each layer's q, k, v, positions and output."""
+    hook uses to see each layer's q, k, v, positions and output.
+
+    Under a mesh (``shard=(mesh, rules)``, DTensor inputs) the core runs
+    through ``local_map``: q, k and v sharded on the heads dim over the
+    model axis (and on the batch over the batch axes), the positions
+    replicated over the model axis, so the flash kernel, its autograd
+    Function and :func:`~repro_torch.kernels.flash_attention.keep_outputs`
+    see plain tensors of the rank's own heads.  The output is a DTensor
+    placed as q."""
 
     def __init__(self, run: RunConfig, window: Optional[int]):
         super().__init__()
@@ -229,10 +259,32 @@ class AttentionCore(nn.Module):
         self.remat_rows = run.remat_attention
         self.window = window
 
-    def forward(self, q, k, v, q_pos, kv_pos):
+    def _core(self, q, k, v, q_pos, kv_pos):
         return attention_core(q, k, v, q_pos, kv_pos, impl=self.impl,
                               window=self.window, chunk=self.chunk,
                               remat_rows=self.remat_rows)
+
+    def _local(self, q, k, v, q_pos, kv_pos):
+        """The core on one rank's local tensors (inside ``local_map``)."""
+        for t in (q, k, v):
+            if t.requires_grad:  # see _contiguous
+                t.register_hook(_contiguous)
+        return self._core(*(t.contiguous() for t in (q, k, v, q_pos,
+                                                      kv_pos)))
+
+    def forward(self, q, k, v, q_pos, kv_pos, shard=None):
+        if shard is None:
+            return self._core(q, k, v, q_pos, kv_pos)
+        from torch.distributed.tensor.experimental import local_map
+
+        mesh, rules = shard
+        head_shards(mesh, q.shape[2], k.shape[2])
+        heads = placements(mesh, rules, ("batch", "seq", "heads_flat", None))
+        pos = placements(mesh, rules, ("batch", "seq"))
+        return local_map(self._local, out_placements=heads,
+                         in_placements=(heads, heads, heads, pos, pos),
+                         device_mesh=mesh, redistribute_inputs=True)(
+            q, k, v, q_pos, kv_pos)
 
 
 def _ring_loss(T: int, cache_pos: int, S: int, window: Optional[int]) -> bool:
@@ -267,16 +319,20 @@ class GQA(nn.Module):
     @staticmethod
     def _proj(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
         b = None if lin.bias is None else lin.bias.to(x.dtype)
-        return F.linear(x, lin.weight.to(x.dtype), b)
+        return F.linear(x, gathered(lin.weight).to(x.dtype), b)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                cache: Optional[AttnCache] = None, cache_pos: int = 0):
+                cache: Optional[AttnCache] = None, cache_pos: int = 0,
+                shard=None):
         """x (B, T, d), positions (B, T) int32.  With a cache (one layer's
         k, v (B, S, Hkv*hd) and pos (B, S)), the new keys are written at
         slots ``cache_pos % S`` onward and the whole cache is attended.  A
         write of T > 1 keys that would overwrite a ring slot whose key an
         earlier query of the same write still sees raises (the keys are
-        attended after the write).  Returns ``(out (B, T, d), cache)``."""
+        attended after the write).  ``shard=(mesh, rules)``: x, positions
+        and the weights are DTensors, the core runs on each rank's heads
+        (:class:`AttentionCore`); no cache then (the model refuses one).
+        Returns ``(out (B, T, d), cache)``."""
         cfg = self.cfg
         B, T, _ = x.shape
         hd, H, Hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
@@ -307,8 +363,9 @@ class GQA(nn.Module):
             k = cache.k.view(B, S, Hkv, hd).to(x.dtype)
             v = cache.v.view(B, S, Hkv, hd).to(x.dtype)
             kv_pos = cache.pos
-        out = self.core(q, k, v, positions, kv_pos).reshape(B, T, H * hd)
-        return F.linear(out, self.wo.weight.to(x.dtype)), cache
+        out = self.core(q, k, v, positions, kv_pos,
+                        shard=shard).reshape(B, T, H * hd)
+        return F.linear(out, gathered(self.wo.weight).to(x.dtype)), cache
 
 
 # ----------------------------------------------------------------------------
@@ -376,10 +433,14 @@ class MLA(nn.Module):
         self.core = AttentionCore(run, None)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                cache: Optional[MLACache] = None, cache_pos: int = 0):
+                cache: Optional[MLACache] = None, cache_pos: int = 0,
+                shard=None):
         """x (B, T, d), positions (B, T) int32; with a cache (one layer's
         :class:`MLACache`) the new entries go to slots ``cache_pos``
-        onward.  Returns ``(out (B, T, d), cache)``."""
+        onward.  Returns ``(out (B, T, d), cache)``.  Not under a mesh
+        yet: ``shard`` must be None."""
+        if shard is not None:
+            raise NotImplementedError("MLA under a mesh is not ported yet")
         cfg, m = self.cfg, self.cfg.mla
         B, T, _ = x.shape
         H, dtype = cfg.n_heads, x.dtype

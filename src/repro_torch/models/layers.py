@@ -10,6 +10,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..sharding.rules import gathered, is_dtensor, replicated_like
 from .params import ParamDef
 
 
@@ -23,9 +24,12 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
 
 def rope_tables(positions: torch.Tensor, dim: int,
                 theta: float) -> "tuple[torch.Tensor, torch.Tensor]":
-    """cos/sin tables for given positions: (..., dim // 2), f32."""
+    """cos/sin tables for given positions: (..., dim // 2), f32.  For a
+    DTensor ``positions`` the tables are DTensors placed as it is."""
     inv = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
                                         device=positions.device) / dim))
+    if is_dtensor(positions):
+        inv = replicated_like(inv, positions)
     ang = positions.float()[..., None] * inv
     return torch.cos(ang), torch.sin(ang)
 
@@ -66,6 +70,7 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = x.dtype
-        g = F.linear(x, self.w_gate.weight.to(dtype))
-        u = F.linear(x, self.w_up.weight.to(dtype))
-        return F.linear(F.silu(g) * u, self.w_down.weight.to(dtype))
+        g = F.linear(x, gathered(self.w_gate.weight).to(dtype))
+        u = F.linear(x, gathered(self.w_up.weight).to(dtype))
+        return F.linear(F.silu(g) * u,
+                        gathered(self.w_down.weight).to(dtype))

@@ -5,8 +5,9 @@ Mamba2 backbone with one weight-shared attention block run after every
 ``attn_every`` Mamba2 blocks, then the tail blocks).
 
 Counterpart of :mod:`repro.models.transformer` (``model_defs``,
-``init_model``, ``zamba_plan``, ``init_cache``, ``make_forward``).  The
-parameter table keeps the JAX package's flat keys and shapes
+``init_model``, ``zamba_plan``, ``init_cache``, ``cache_logical``,
+``make_forward``).  The parameter table keeps the JAX package's flat keys
+and shapes
 (``"layers/attn/wq"`` of shape (L, d, H * hd), ``"dense0/mlp/w_gate"`` for
 deepseek-v2's leading dense layer, ``"tail0/ssm/wx"`` and ``"shared/attn/wq"``
 for the hybrid, ...); the module holds the leading dense blocks in
@@ -35,6 +36,7 @@ from torch.utils.checkpoint import (checkpoint,
 from ..config.base import ModelConfig, RunConfig
 from ..core.graph import resolve_device
 from ..kernels.flash_attention import keep_outputs
+from ..sharding.rules import constrain, distribute, gathered
 from .attention import (GQA, MLA, SENTINEL, AttnCache, MLACache, attn_defs,
                         mla_defs)
 from .layers import MLP, mlp_defs, rms_norm
@@ -188,6 +190,49 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     return cache
 
 
+def cache_logical(cfg: ModelConfig, batch_shardable: bool,
+                  seq_shard: bool) -> dict:
+    """Logical axes of every leaf of :func:`init_cache`'s tree (the same
+    structure), JAX's exactly: the batch on ``"batch"`` when
+    ``batch_shardable``, the attention caches' sequence on ``"kv_seq"``
+    when ``seq_shard``, MLA's compressed cache on ``"mla_seq"``."""
+    b = "batch" if batch_shardable else None
+    s = "kv_seq" if seq_shard else None
+    if cfg.rwkv is not None:
+        return {"state": ("layers", b, None, None, None),
+                "x_tm": ("layers", b, None), "x_cm": ("layers", b, None)}
+    if cfg.ssm is not None:
+        n_tail = zamba_plan(cfg)[2]
+
+        def mamba_log(extra):
+            return {"conv_x": (*extra, b, None, "ff"),
+                    "conv_B": (*extra, b, None, None),
+                    "conv_C": (*extra, b, None, None),
+                    "state": (*extra, b, None, None, None)}
+
+        return {"mamba": mamba_log(("layers", None)),
+                "attn": AttnCache(("layers", b, s, "kv_flat"),
+                                  ("layers", b, s, "kv_flat"),
+                                  ("layers", b, s)),
+                "tail": [mamba_log(()) for _ in range(n_tail)]}
+    first = first_dense_layers(cfg)
+    if cfg.mla is not None:
+        sm = "mla_seq"  # the compressed cache shards over seq
+        out = {"layers": MLACache(("layers", b, sm, None),
+                                  ("layers", b, sm, None),
+                                  ("layers", b, sm))}
+        for i in range(first):
+            out[f"dense{i}"] = MLACache((b, sm, None), (b, sm, None), (b, sm))
+        return out
+    out = {"layers": AttnCache(("layers", b, s, "kv_flat"),
+                               ("layers", b, s, "kv_flat"),
+                               ("layers", b, s))}
+    for i in range(first):
+        out[f"dense{i}"] = AttnCache((b, s, "kv_flat"), (b, s, "kv_flat"),
+                                     (b, s))
+    return out
+
+
 def _dots_contexts():
     """Selective checkpointing for ``"dots"``: the matmul outputs (``mm``,
     ``addmm``, ``bmm``) are kept, the counterpart of JAX's
@@ -245,11 +290,13 @@ class Block(nn.Module):
         else:
             self.mlp = MLP(cfg.d_model, cfg.d_ff)
 
-    def forward(self, x, positions, cache=None, cache_pos=0):
+    def forward(self, x, positions, cache=None, cache_pos=0, shard=None):
         """Returns ``(x, cache, aux)``; ``aux`` is the MoE's load-balancing
-        loss (f32 scalar), 0 for an MLP block."""
+        loss (f32 scalar), 0 for an MLP block.  ``shard=(mesh, rules)``
+        runs a GQA block on DTensors (:class:`~repro_torch.models.
+        attention.GQA`)."""
         h, cache = self.attn(rms_norm(x, self.ln1, self.eps), positions,
-                             cache, cache_pos)
+                             cache, cache_pos, shard)
         x = x + h
         h = rms_norm(x, self.ln2, self.eps)
         if hasattr(self, "moe"):
@@ -291,6 +338,18 @@ class MambaBlock(nn.Module):
         return x + self.ssm(rms_norm(x, self.ln, self.eps), cache)[0]
 
 
+def check_mesh_family(cfg: ModelConfig):
+    """Raise for a family that does not run under a mesh yet: the GQA
+    dense families (qwen3, qwen1.5, danube3's window, musicgen, pixtral's
+    prefix, deepseek-coder) do."""
+    for what, part in (("MoE", cfg.moe), ("MLA", cfg.mla),
+                       ("the Mamba2 hybrid", cfg.ssm), ("RWKV6", cfg.rwkv)):
+        if part is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: {what} under a mesh is not ported yet; run it "
+                "without a mesh")
+
+
 class Transformer(nn.Module):
     """The decoder: embed (after any prefix embeddings), the blocks, final
     norm, unembed.  Attention families: the leading dense blocks
@@ -303,6 +362,9 @@ class Transformer(nn.Module):
     def __init__(self, cfg: ModelConfig, run: RunConfig):
         super().__init__()
         self.cfg, self.run = cfg, run
+        #: the mesh and rules the parameters are placed by (DTensors), set
+        #: by :func:`~repro_torch.models.convert.from_jax_params`
+        self.mesh = self.rules = None
         self.embed = nn.Embedding(cfg.vocab_size, cfg.d_model)
         self.final_ln = nn.Parameter(torch.ones(cfg.d_model))
         if not cfg.tie_embeddings:
@@ -363,15 +425,41 @@ class Transformer(nn.Module):
         forward: the cache (from :func:`init_cache`) is updated in place
         (attention at slots ``cache_pos`` onward, mod S for a ring; the
         recurrent states and conv inputs overwritten), ``aux`` the MoE
-        losses summed over the blocks (f32 scalar)."""
+        losses summed over the blocks (f32 scalar).
+
+        Under the mesh and rules the parameters were placed by
+        (:attr:`mesh`, :attr:`rules`) the inputs are placed on the batch
+        axes, the residual stream is held to ``("batch", "seq",
+        "act_embed")`` after the embedding and after every stacked block,
+        and the logits come back a DTensor held to ``("batch", "seq",
+        "logit_vocab")``: JAX's constraints.  The GQA dense families run
+        there, without a cache (:func:`check_mesh_family`)."""
+        mesh, rules = self.mesh, self.rules
+        shard = None if mesh is None else (mesh, rules)
+        if shard is not None:
+            check_mesh_family(self.cfg)
+            if cache is not None:
+                raise NotImplementedError(
+                    "decode and the cache-writing prefill under a mesh are "
+                    "not ported yet: run them without a mesh")
+            tokens = distribute(tokens, mesh, rules, ("batch", "seq"))
+            positions = distribute(positions, mesh, rules, ("batch", "seq"))
+            if prefix_embeds is not None:
+                prefix_embeds = distribute(prefix_embeds, mesh, rules,
+                                           ("batch", "seq", "act_embed"))
+        batch_logical = ("batch", "seq", "act_embed")
         dtype = getattr(torch, self.run.compute_dtype)
-        x = F.embedding(tokens, self.embed.weight).to(dtype)
+        x = F.embedding(tokens, gathered(self.embed.weight)).to(dtype)
         if prefix_embeds is not None:
             B, P = prefix_embeds.shape[:2]
+            x = constrain(x, mesh, rules, batch_logical)
             x = torch.cat([prefix_embeds.to(dtype), x], dim=1)
             ppos = torch.arange(P, dtype=torch.int32,
                                 device=tokens.device).expand(B, P)
+            if shard is not None:
+                ppos = distribute(ppos, mesh, rules, ("batch", "seq"))
             positions = torch.cat([ppos, positions + P], dim=1)
+        x = constrain(x, mesh, rules, batch_logical)
         aux = torch.zeros((), device=x.device)
         mode = self.run.remat if cache is None else "none"
         if self.cfg.rwkv is not None:
@@ -392,9 +480,13 @@ class Transformer(nn.Module):
                 aux = aux + a
             for i, block in enumerate(self.layers):
                 c = None if cache is None else _at(cache["layers"], i)
-                x, _, a = remat(block, mode)(x, positions, c, cache_pos)
+                x, _, a = remat(block, mode)(x, positions, c, cache_pos,
+                                             shard)
+                x = constrain(x, mesh, rules, batch_logical)
                 aux = aux + a
         x = rms_norm(x, self.final_ln, self.cfg.norm_eps)
-        w = (self.embed.weight if self.cfg.tie_embeddings
-             else self.unembed.weight)
-        return F.linear(x.float(), w.float()), cache, aux
+        w = gathered(self.embed.weight if self.cfg.tie_embeddings
+                     else self.unembed.weight)
+        logits = constrain(F.linear(x.float(), w.float()), mesh, rules,
+                           ("batch", "seq", "logit_vocab"))
+        return logits, cache, aux

@@ -18,6 +18,7 @@ import torch
 
 from ..config.base import ModelConfig, RunConfig
 from ..models.transformer import Transformer
+from ..sharding.rules import check_placed, is_dtensor
 
 
 def _checked(model: Transformer, cfg: ModelConfig, run: RunConfig):
@@ -32,29 +33,46 @@ def _arange_positions(B: int, T: int, device) -> torch.Tensor:
     return torch.arange(T, dtype=torch.int32, device=device).repeat(B, 1)
 
 
-def make_prefill_step(cfg: ModelConfig, run: RunConfig):
+def _no_mesh(mesh, what: str):
+    if mesh is not None:
+        raise NotImplementedError(
+            f"{what} under a mesh is not ported yet (it comes with "
+            "seq_shard_decode): run it without a mesh")
+
+
+def make_prefill_step(cfg: ModelConfig, run: RunConfig, mesh=None,
+                      rules=None):
     """The cacheless prefill step: ``(model, tokens[, positions,
     prefix_embeds]) -> logits`` over a (B, T) prompt batch; ``prefix_embeds``
     (B, P, d) go first, at positions 0..P-1, and the logits are (B, P + T,
-    V).  Use :func:`make_prefill_cache_step` when decode will follow."""
+    V).  Use :func:`make_prefill_cache_step` when decode will follow.
+
+    With ``mesh`` and ``rules`` (the model placed by them) the prompt
+    batch is placed on the batch axes and the logits are the whole
+    (B, P + T, V) tensor on every rank (gathered from their
+    ``("batch", "seq", "logit_vocab")`` shards)."""
 
     @torch.inference_mode()
     def prefill_step(model: Transformer, tokens: torch.Tensor,
                      positions: Optional[torch.Tensor] = None,
                      prefix_embeds: Optional[torch.Tensor] = None):
         _checked(model, cfg, run)
+        check_placed(model, mesh, rules)
         if positions is None:
             positions = _arange_positions(*tokens.shape, tokens.device)
-        return model(tokens, positions, prefix_embeds=prefix_embeds)[0]
+        logits = model(tokens, positions, prefix_embeds=prefix_embeds)[0]
+        return logits.full_tensor() if is_dtensor(logits) else logits
 
     return prefill_step
 
 
-def make_prefill_cache_step(cfg: ModelConfig, run: RunConfig):
+def make_prefill_cache_step(cfg: ModelConfig, run: RunConfig, mesh=None,
+                            rules=None):
     """Prefill that also fills the decode cache from slot 0:
     ``(model, tokens, cache[, prefix_embeds]) -> (logits (B, P + T, V),
     cache)``.  The prefix fills slots 0..P-1, so decode goes on at
-    ``cache_pos = P + T``."""
+    ``cache_pos = P + T``.  Under a mesh it raises: not ported yet."""
+    _no_mesh(mesh, "the cache-writing prefill")
 
     @torch.inference_mode()
     def prefill(model: Transformer, tokens: torch.Tensor, cache,
@@ -68,15 +86,17 @@ def make_prefill_cache_step(cfg: ModelConfig, run: RunConfig):
     return prefill
 
 
-def make_serve_step(cfg: ModelConfig, run: RunConfig, *,
-                    greedy: bool = True):
+def make_serve_step(cfg: ModelConfig, run: RunConfig, mesh=None,
+                    rules=None, *, greedy: bool = True):
     """The single-token decode step: ``(model, cache, tokens, cache_pos[,
     generator]) -> (next (B, 1) int32, cache, logits (B, V))``.
 
     ``tokens`` (B, 1) is the newest token, ``cache_pos`` (an int) its
     position.  ``greedy=False`` with a ``torch.Generator`` samples from
-    the softmax of the logits instead of taking the argmax.
+    the softmax of the logits instead of taking the argmax.  Under a mesh
+    it raises: not ported yet.
     """
+    _no_mesh(mesh, "decode")
 
     @torch.inference_mode()
     def serve_step(model: Transformer, cache, tokens: torch.Tensor,

@@ -1,9 +1,10 @@
 """Training: AdamW, the train step, checkpoints, elasticity helpers.
 
-Counterpart of :mod:`repro.train` for one card (the sharded forms wait
-for ``sharding/rules.py``).  Parameters are the module's own, updated in
-place; gradients and Adam moments are dicts keyed by the module's
-parameter names, mapped to the JAX package's keys and layouts by
+Counterpart of :mod:`repro.train`, on one card or sharded on a device
+mesh (DTensor parameters placed by :mod:`repro_torch.sharding.rules`).
+Parameters are the module's own, updated in place; gradients and Adam
+moments are dicts keyed by the module's parameter names, mapped to the
+JAX package's keys and layouts by
 :func:`repro_torch.models.convert.to_jax_params` (checkpoints) and
 :func:`repro_torch.models.convert.jax_key_of` (the decay mask).
 """

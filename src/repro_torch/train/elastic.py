@@ -1,19 +1,50 @@
-"""Elastic scaling and straggler helpers, the device-count-agnostic part
-of :mod:`repro.train.elastic`.
+"""Elastic scaling and straggler helpers (counterpart of
+:mod:`repro.train.elastic`).
 
+* :func:`reshard_tree` — move a tree onto a new mesh's placements
+  (recovery without a checkpoint while the tensors still exist; the
+  checkpointed path is :mod:`repro_torch.train.checkpoint`).
 * :class:`StepWatchdog` — per-step wall-time tracker that flags stragglers
   (steps longer than ``factor`` times the rolling median).
 * :func:`plan_elastic_mesh` — given the surviving device count, the
   largest (data, model) grid that keeps the model axis.
-
-``reshard_tree`` (moving a tree onto a new mesh's placements) waits for
-``sharding/rules.py``.
 """
 from __future__ import annotations
 
 import collections
 import statistics
 import time
+from typing import Mapping
+
+import torch
+
+from ..sharding.rules import from_whole, is_dtensor, mesh_placements
+
+
+def reshard_tree(tree, mesh, specs):
+    """Every leaf of ``tree`` (a dict, list or tuple of tensors, nested)
+    placed on ``mesh`` by the spec at the same place in ``specs`` (a
+    tuple of mesh-axis names, tuples of names or None per dim, as
+    :func:`~repro_torch.models.params.param_specs` gives).
+
+    A plain tensor (the whole tensor, the same on every rank, on the host
+    or the device) gives each rank a copy of its own block on the mesh's
+    device, no collective; a DTensor on ``mesh`` is redistributed; a
+    DTensor on another mesh goes through the whole tensor
+    (``full_tensor``, a collective over its old mesh: every rank of it
+    must call), since a DTensor cannot be redistributed across meshes."""
+    if isinstance(tree, Mapping):
+        return {k: reshard_tree(v, mesh, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, torch.Size):
+        out = [reshard_tree(v, mesh, s) for v, s in zip(tree, specs)]
+        return type(tree)(*out) if hasattr(tree, "_fields") else type(
+            tree)(out)
+    want = mesh_placements(mesh, tuple(specs))
+    if is_dtensor(tree):
+        if tree.device_mesh == mesh:
+            return tree.redistribute(mesh, want)
+        tree = tree.full_tensor()
+    return from_whole(tree, mesh, want)
 
 
 def plan_elastic_mesh(n_devices: int, model_parallel: int = 16):

@@ -1,7 +1,7 @@
 """The port stands alone: every module of ``repro_torch`` and
 ``chip_smoke.py`` imports in a process where importing ``jax`` or
-``repro`` raises, and no import statement in them (lazy ones included)
-names either."""
+``repro`` raises, and no import statement in them or in the
+``examples/*_torch.py`` twins (lazy ones included) names either."""
 import ast
 import os
 import subprocess
@@ -37,11 +37,16 @@ def test_every_module_imports_without_jax_or_repro():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     names = set(out.stdout.split())
-    for pkg in ("train", "data", "launch"):
+    for pkg in ("train", "data", "launch", "sharding"):
         assert f"repro_torch.{pkg}" in names
     assert {"repro_torch.train.optimizer", "repro_torch.train.train_step",
             "repro_torch.train.checkpoint", "repro_torch.train.elastic",
             "repro_torch.data.pipeline", "repro_torch.launch.train"} <= names
+    assert {"repro_torch.sharding.rules", "repro_torch.launch.mesh",
+            "repro_torch.launch.specs", "repro_torch.launch.dryrun",
+            "repro_torch.launch.sweep", "repro_torch.launch.report",
+            "repro_torch.launch.roofline", "repro_torch.launch.census_dryrun",
+            "repro_torch.configs.triad_census"} <= names
 
 
 def _sources():
@@ -50,6 +55,10 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    examples = os.path.join(ROOT, "examples")
+    for f in sorted(os.listdir(examples)):
+        if f.endswith("_torch.py"):
+            yield os.path.join(examples, f)
 
 
 def test_no_import_statement_names_jax_or_repro():
