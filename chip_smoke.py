@@ -222,6 +222,25 @@ script exits non-zero and prints no result.  Phases:
              unsharded prefill: logits within ONE_RANK_TOL of their
              largest magnitude, 36 flash launches each; cold, then warm
              in turns.
+   sharded_serve — on that mesh, placed by ``serve_rules``, beside the
+             same bf16 weights unsharded (``SHARDED_SERVE``):
+             granite-moe-3b-a800m (32 layers), deepseek-v2-236b (4),
+             zamba2-1.2b (38) and rwkv6-3b (32) at B 4 x 2,048, the
+             cacheless prefill with every flash call held to the plain
+             version (32 / 4 / 6 / 0 launches, as unsharded), logits
+             within ONE_RANK_TOL, cold then warm in turns; then those and
+             qwen3-4b: the cache-writing prefill into a cache placed by
+             ``init_cache(mesh=, rules=)`` and greedy decode steps,
+             the same tokens, every step's logits within ONE_RANK_TOL,
+             the flash launches a prefill as unsharded and none in
+             decode; prefill ms and ms per token of each, one profiled
+             prefill (not rwkv6's) and decode step of each (idle share).
+             The deep models decode 4 tokens, deepseek-v2 16.
+   sharded_family_train — one step of zamba2-1.2b (8 of 38 layers) and
+             granite-moe-3b-a800m (8 of 32) at B 1 x 4,096 through
+             ``train_setup`` against the unsharded step from the same
+             seed: loss and every parameter within ONE_RANK_TOL, 1 and 8
+             flash launches a step (none in the backward), step ms.
    examples — each ``examples/*_torch.py`` twin's ``main`` on the card
              (``EXAMPLES``; Slashdot's at its published size, serve_decode
              at qwen3-4b's full width): censuses equal to ``"search"``
@@ -237,8 +256,9 @@ script exits non-zero and prints no result.  Phases:
    fleet, session, dynamic, reorder, faults, partition, distributed (per
    rank), patents and example phases; flash_attention's its launches per
    prefill for every architecture, per train step, per sharded train
-   step and sharded prefill, the serving twin's, and its MLA and window
-   timings and gradient checks), then the result line.
+   step, sharded prefill and sharded decode step of each family, the
+   serving twin's, and its MLA and window timings and gradient checks),
+   then the result line.
 
 Exits non-zero without a CUDA device.
 """
@@ -333,6 +353,33 @@ TRAIN_CHUNK = 1024
 # the card at once); the launcher's schedule over SHARDED_TOTAL steps
 SHARDED_TURNS_LAYERS = 8
 SHARDED_TOTAL = 50
+# the other families on that mesh against the same weights unsharded:
+# arch -> batch, prompt, greedy decode steps, depth, flash launches a
+# prefill makes, whether the cacheless prefill is checked too (qwen3-4b's
+# is sharded_prefill's) and the steps profiled.  deepseek-v2 keeps 1
+# dense + 3 MoE blocks, as in FAMILIES (two bf16 copies take 50 GB).  The
+# sharded decode is host-bound on DTensor dispatch (1.2-2.0 s a token at
+# 32-38 layers), so the deep models decode 4 tokens, not 16, and rwkv6's
+# prefill (~72,600 launches) is not profiled: the cells keep within ~150
+# s of the script.
+SHARDED_SERVE = {
+    "qwen3-4b": dict(batch=4, prompt=2048, new=4, layers=36, flash=36,
+                     cacheless=False),
+    "granite-moe-3b-a800m": dict(batch=4, prompt=2048, new=4, layers=32,
+                                 flash=32),
+    "deepseek-v2-236b": dict(batch=4, prompt=2048, new=16, layers=4,
+                             flash=4),
+    "zamba2-1.2b": dict(batch=4, prompt=2048, new=4, layers=38, flash=6),
+    "rwkv6-3b": dict(batch=4, prompt=2048, new=4, layers=32, flash=0,
+                     profile=("decode",)),
+}
+# one sharded train step against the unsharded one (B 1 x 4,096, as
+# TRAIN): arch -> depth and flash launches a step.  zamba2 keeps 1
+# super-block and 2 tail blocks of 38 (its step is host-bound on the SSD
+# loop: ~7 s unsharded at full depth, twice that sharded), granite 8 of
+# its 32 layers.
+SHARDED_TRAIN = {"zamba2-1.2b": dict(layers=8, flash=1),
+                 "granite-moe-3b-a800m": dict(layers=8, flash=8)}
 # a one-rank mesh runs the same local ops as the unsharded model, so its
 # loss, parameters and logits must equal the unsharded ones: within this,
 # scaled (a loss or logits) or absolute (a parameter)
@@ -1088,11 +1135,13 @@ def held_to_plain(torch, calls, errs):
     its :func:`plain_error` (the kernel's output against the plain
     version on that call's own inputs) to ``errs``.  One hook per core:
     the hybrid's shared core is called once per super-block."""
+    def plain(t):  # inference tensors (MLA's cache prefill) take no detach
+        return whole(t.detach() if t.requires_grad else t)
+
     def hook(core, args, out):
         with torch.no_grad():  # a sharded core's DTensors taken whole
-            errs.append(plain_error(torch, whole(out.detach()),
-                                    *(whole(a.detach()) for a in args),
-                                    core.window))
+            errs.append(plain_error(torch, plain(out),
+                                    *(plain(a) for a in args), core.window))
 
     hooks = [core.register_forward_hook(hook)
              for core in {id(c): c for c in calls}.values()]
@@ -2141,6 +2190,295 @@ def sharded_prefill_phase(torch, dev):
     return launches["sharded"]
 
 
+def sharded_serve_cell(torch, dev, arch, spec):
+    """One architecture at full width (``SHARDED_SERVE``), bf16, placed on
+    the (1, 1) mesh by ``serve_rules`` beside the same seeded weights
+    unsharded (both contiguous).
+    Unless ``spec["cacheless"]`` is False: the cacheless prefill
+    (``make_prefill_step(cfg, run, mesh, rules)``), its flash calls held
+    to the plain version (2e-2 scaled) and counted (``spec["flash"]``, as
+    the unsharded model's), its logits within ONE_RANK_TOL of the
+    unsharded ones' largest magnitude; cold, then warm in turns.  Then
+    the sharded model's cache-writing prefill once with its flash calls
+    held to the plain version at the cache's S = T + N (2e-2 scaled,
+    ``spec["flash"]`` of them), and each model's timed cache-writing
+    prefill into its own fresh cache (the
+    sharded one placed by ``init_cache(mesh=, rules=)``) and
+    ``spec["new"]`` greedy decode steps: the same tokens, every step's
+    logits and the prefill's within ONE_RANK_TOL, ``spec["flash"]``
+    launches a prefill and none in decode; prefill ms and ms per token of
+    each, and one profiled prefill and decode step of each (the idle
+    share; ``spec["profile"]`` names fewer).  Returns ``{"prefill": launches, "decode": launches a step}``
+    of the sharded model."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.config import RunConfig, get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.specs import serve_rules
+    from repro_torch.models.convert import init_module
+    from repro_torch.models.params import count_params
+    from repro_torch.models.transformer import init_cache, model_defs
+    from repro_torch.serve import (make_prefill_cache_step, make_prefill_step,
+                                   make_serve_step)
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=spec["layers"])
+    cut = (None if cfg.n_layers == full.n_layers
+           else f"{cfg.n_layers} of {full.n_layers} layers")
+    free(torch)
+    need = 2 * 2 * count_params(model_defs(cfg))  # two bf16 copies
+    check(need <= torch.cuda.mem_get_info()[0],
+          f"sharded {arch}: {need} bytes of weights do not fit")
+    run = RunConfig(attention_impl="flash", param_dtype="bfloat16",
+                    compute_dtype="bfloat16", remat="none")
+    B, T, N, flash = spec["batch"], spec["prompt"], spec["new"], spec["flash"]
+    tokens = torch.randint(0, cfg.vocab_size, (B, T), device=dev,
+                           dtype=torch.int32, generator=torch.Generator(
+                               device=dev).manual_seed(1))
+    mesh = init_device_mesh(dev.type, (1, 1),
+                            mesh_dim_names=("data", "model"))
+    rules = serve_rules(cfg, run, mesh, B, T + N)
+
+    def seeded():
+        return torch.Generator(device=dev).manual_seed(0)
+
+    # the same seeded weights, each model drawing a layer's slice at a
+    # time into contiguous (out, in) weights: a view of the JAX-layout
+    # (in, out) table would take other GEMM kernels and round otherwise
+    models = {"unsharded": (init_module(cfg, seeded(), run=run,
+                                        trainable=True).requires_grad_(False)
+                            .eval(), None, None),
+              "sharded": (init_module(cfg, seeded(), run=run, mesh=mesh,
+                                      rules=rules), mesh, rules)}
+    check(len(models["sharded"][0].attention_calls()) == flash,
+          f"sharded {arch}: {len(models['sharded'][0].attention_calls())} "
+          f"attention calls, want {flash}")
+    rec = dict(arch=arch, layers=cfg.n_layers, cut=cut, batch=B, prompt=T,
+               new=N, mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)),
+               expert_sharding=None if cfg.moe is None else
+               "expert" if rules.table["experts"] else "tensor")
+
+    def scaled(got, want):
+        return float((got - want).abs().max()) / max(
+            float(want.abs().max()), 1e-30)
+
+    if spec.get("cacheless", True):
+        model = models["sharded"][0]
+        errs = []
+        flash_attention.launches = 0
+        with held_to_plain(torch, model.attention_calls(), errs):
+            got = make_prefill_step(cfg, run, mesh, rules)(model, tokens)
+            torch.cuda.synchronize()
+        check(flash_attention.launches == flash == len(errs),
+              f"sharded {arch} checked prefill: {flash_attention.launches} "
+              f"launches, {len(errs)} checked, want {flash}")
+        worst = max((e[1] for e in errs), default=0.0)
+        check(worst < 2e-2, f"sharded {arch}: flash scaled error {worst}")
+        ms, launches = {"unsharded": [], "sharded": []}, {}
+
+        def prefill(label):
+            m, m_mesh, m_rules = models[label]
+            step = make_prefill_step(cfg, run, m_mesh, m_rules)
+            torch.cuda.synchronize()
+            flash_attention.launches = 0
+            t0 = time.perf_counter()
+            logits = step(m, tokens)
+            torch.cuda.synchronize()
+            ms[label].append((time.perf_counter() - t0) * 1e3)
+            launches[label] = flash_attention.launches
+            return logits
+
+        want = prefill("unsharded")
+        err = scaled(got, want)
+        check(got.shape == want.shape == (B, T, cfg.vocab_size)
+              and err <= ONE_RANK_TOL,
+              f"sharded {arch} prefill: logits {err} of their largest "
+              f"magnitude apart")
+        del got, want
+        for label in ("sharded", "unsharded"):
+            prefill(label)
+        check(launches == {"unsharded": flash, "sharded": flash},
+              f"sharded {arch} prefill: flash launches {launches}")
+        rec.update(cacheless=dict(
+            logits_max_scaled_diff=err, flash_checked=len(errs),
+            flash_max_scaled_err=worst, flash_launches=launches,
+            cold_ms=ms["unsharded"][0], warm_ms=ms))
+        free(torch)
+
+    served, profiles = {}, {}
+    for label, (m, m_mesh, m_rules) in models.items():
+        prefill = make_prefill_cache_step(cfg, run, m_mesh, m_rules)
+        serve = make_serve_step(cfg, run, m_mesh, m_rules)
+        if m_mesh is not None:  # its flash calls at the cache's S = T + N
+            errs = []
+            cache = init_cache(cfg, B, T + N, torch.bfloat16, dev,
+                               mesh=m_mesh, rules=m_rules)
+            flash_attention.launches = 0
+            with held_to_plain(torch, m.attention_calls(), errs):
+                prefill(m, tokens, cache)
+                torch.cuda.synchronize()
+            worst = max((e[1] for e in errs), default=0.0)
+            check(flash_attention.launches == flash == len(errs)
+                  and worst < 2e-2,
+                  f"sharded {arch} checked cache prefill: "
+                  f"{flash_attention.launches} launches, {len(errs)} "
+                  f"checked, want {flash}; scaled error {worst}")
+            rec.update(cache_prefill_flash_checked=len(errs),
+                       cache_prefill_flash_max_scaled_err=worst)
+            del cache
+            free(torch)
+        cache = init_cache(cfg, B, T + N, torch.bfloat16, dev, mesh=m_mesh,
+                           rules=m_rules)
+        torch.cuda.synchronize()
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        logits, cache = prefill(m, tokens, cache)
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        prefill_launches = flash_attention.launches
+        outs = [logits[:, -1].float()]
+        del logits
+        toks = []
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        for i in range(N):
+            tok, cache, lg = serve(m, cache, tok, T + i)
+            toks.append(tok)
+            outs.append(lg.float())
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / N
+        served[label] = dict(tokens=torch.cat(toks, 1), logits=outs,
+                             prefill_ms=prefill_ms, decode_ms=decode_ms,
+                             prefill_launches=prefill_launches,
+                             decode_launches=flash_attention.launches)
+        check(prefill_launches == flash and flash_attention.launches == 0,
+              f"sharded {arch} {label}: {prefill_launches} flash launches "
+              f"in prefill, {flash_attention.launches} in decode")
+        steps = {"prefill": lambda: prefill(m, tokens, cache),
+                 "decode": lambda: serve(m, cache, tok, T + N - 1)}
+        profiles[label] = {step: device_split(torch, steps[step])
+                           for step in spec.get("profile",
+                                                ("prefill", "decode"))}
+        del cache
+        free(torch)
+    got, want = served["sharded"], served["unsharded"]
+    check(torch.equal(got["tokens"], want["tokens"]),
+          f"sharded {arch} decode: tokens differ from unsharded")
+    step_err = max(scaled(g, w) for g, w in zip(got["logits"],
+                                                want["logits"]))
+    check(step_err <= ONE_RANK_TOL,
+          f"sharded {arch} decode: logits {step_err} apart")
+    rec.update(
+        decode_logits_max_scaled_diff=step_err, tokens_equal=True,
+        first_tokens=got["tokens"][:, :8].tolist(),
+        **{f"{k}_{label}": served[label][k] for label in served
+           for k in ("prefill_ms", "decode_ms", "prefill_launches",
+                     "decode_launches")},
+        **{f"{step}_idle_share_{label}": split["device_idle_share"]
+           for label in profiles for step, split in profiles[label].items()},
+        **{f"{step}_busy_ms_{label}": split["device_busy_ms"]
+           for label in profiles for step, split in profiles[label].items()})
+    emit("sharded_serve", **rec)
+    del models, served, got, want
+    free(torch)
+    return {"prefill": rec["prefill_launches_sharded"],
+            "decode": rec["decode_launches_sharded"]}
+
+
+def sharded_train_cell(torch, dev, arch, spec):
+    """One train step of ``arch`` at full width and ``spec["layers"]``
+    layers (``SHARDED_TRAIN``; B 1 x 4,096, f32 parameters, bf16 compute,
+    remat "full", flash at chunk 1,024) through the launcher's setup on
+    the (1, 1) mesh against the same step unsharded from the same seed,
+    the two in turns: one forward of the sharded loss with its flash
+    calls held to the plain version (2e-2 scaled, ``spec["flash"]`` of
+    them), then the loss and every parameter after a step within
+    ONE_RANK_TOL, ``spec["flash"]`` flash launches in each step (the
+    forward's; none in the backward), step ms of each.  Returns the
+    sharded step's launches."""
+    from repro_torch.config import RunConfig, get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.train import train_setup
+    from repro_torch.models.convert import from_jax_params
+    from repro_torch.models.transformer import init_model
+    from repro_torch.train import adamw_init, make_loss_fn, make_train_step
+    from repro_torch.train.optimizer import cosine_schedule
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=spec["layers"])
+    run = RunConfig(attention_impl="flash", attention_chunk=TRAIN_CHUNK,
+                    remat="full", param_dtype="float32",
+                    compute_dtype="bfloat16")
+    warmup = max(2, SHARDED_TOTAL // 10)
+    batch = train_batches(torch, dev, cfg, 1)[0]
+    free(torch)
+    torch.cuda.reset_peak_memory_stats()
+
+    def one_step(model, opt, step):
+        torch.cuda.synchronize()
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        model, opt, mets = step(model, opt, batch)
+        torch.cuda.synchronize()
+        return (model, float(mets["loss"]), (time.perf_counter() - t0) * 1e3,
+                flash_attention.launches)
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = from_jax_params(cfg, init_model(cfg, gen, torch.float32),
+                            run=run, device=dev, trainable=True)
+    model, loss_ref, ref_ms, ref_launches = one_step(
+        model, adamw_init(dict(model.named_parameters())),
+        make_train_step(cfg, run, total_steps=SHARDED_TOTAL, warmup=warmup))
+    ref = {k: whole(p.detach()).to("cpu", copy=True)
+           for k, p in model.named_parameters()}
+    del model
+    free(torch)
+    model, opt, step, mesh, rules = train_setup(cfg, run, dev,
+                                                total_steps=SHARDED_TOTAL)
+    check(all(hasattr(p, "placements") for p in model.parameters()),
+          f"sharded train {arch}: a parameter is not a DTensor")
+    errs = []
+    flash_attention.launches = 0
+    with held_to_plain(torch, model.attention_calls(), errs):
+        fwd, _ = make_loss_fn(cfg, run, mesh, rules)(model, batch)
+        torch.cuda.synchronize()
+    del fwd
+    worst_flash = max((e[1] for e in errs), default=0.0)
+    check(len(errs) == flash_attention.launches == spec["flash"]
+          and worst_flash < 2e-2,
+          f"sharded train {arch}: {len(errs)} flash calls checked, "
+          f"{flash_attention.launches} launches, want {spec['flash']}; "
+          f"scaled error {worst_flash}")
+    free(torch)
+    model, loss, ms, launches = one_step(model, opt, step)
+    check(launches == ref_launches == spec["flash"],
+          f"sharded train {arch}: {launches} flash launches a step, "
+          f"unsharded {ref_launches}, want {spec['flash']}")
+    loss_diff = abs(loss - loss_ref)
+    check(loss_diff <= ONE_RANK_TOL * max(1.0, abs(loss_ref)),
+          f"sharded train {arch}: loss {loss}, unsharded {loss_ref}")
+    lr = float(cosine_schedule(1, run.learning_rate, warmup=warmup,
+                               total=SHARDED_TOTAL))
+    worst, off, total = step_diff(torch, dict(model.named_parameters()), ref,
+                                  lr)
+    check(worst <= ONE_RANK_TOL,
+          f"sharded train {arch}: a parameter {worst} from the unsharded "
+          f"step's ({off} of {total} past 1e-5)")
+    emit("sharded_family_train", arch=arch, layers=cfg.n_layers,
+         cut=f"{cfg.n_layers} of {full.n_layers} layers",
+         mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)), loss=loss,
+         loss_unsharded=loss_ref, loss_abs_diff=loss_diff,
+         param_worst_abs_diff=worst, params_past_1e5=off, params=total,
+         flash_launches=launches, unsharded_flash_launches=ref_launches,
+         flash_checked=len(errs), flash_max_scaled_err=worst_flash,
+         step_ms=ms, unsharded_step_ms=ref_ms,
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    del model, opt, step, ref
+    free(torch)
+    return launches
+
+
 def examples_phase(torch, dev):
     """Each ``examples/*_torch.py`` twin's ``main`` on the card
     (``EXAMPLES``): every census it prints equal to a ``"search"`` run on
@@ -2265,18 +2603,32 @@ def dryrun_phase(torch):
 
 
 def sharded_phases(torch, dev):
-    """The sharded train and prefill, the elastic restore (one-rank
-    ``nccl`` group, (1, 1) mesh), the example twins and the dry runs,
-    each phase's seconds emitted.  Returns (flash launches a sharded
-    train step, a sharded prefill, the twins' launches)."""
+    """The sharded train and prefill, the elastic restore, then every
+    family of ``SHARDED_SERVE`` (cacheless prefill, cache-writing prefill
+    and decode) and ``SHARDED_TRAIN`` (one step) against the unsharded
+    model (one-rank ``nccl`` group, (1, 1) mesh), the example twins and
+    the dry runs, each phase's seconds emitted.  Returns (flash launches
+    a sharded train step by arch, a sharded prefill by arch, a sharded
+    decode step by arch, the twins' launches)."""
     seconds = {}
     t0 = time.perf_counter()
     with one_rank_group(torch):
-        train_launches = sharded_train_phase(torch, dev)
+        train_launches = {ARCH: sharded_train_phase(torch, dev)}
         seconds["sharded_train_and_elastic"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        prefill_launches = sharded_prefill_phase(torch, dev)
+        prefill_launches = {ARCH: sharded_prefill_phase(torch, dev)}
+        decode_launches = {}
         seconds["sharded_prefill"] = time.perf_counter() - t0
+        for arch, spec in SHARDED_SERVE.items():
+            t0 = time.perf_counter()
+            got = sharded_serve_cell(torch, dev, arch, spec)
+            prefill_launches[arch] = got["prefill"]
+            decode_launches[arch] = got["decode"]
+            seconds[f"sharded_serve_{arch}"] = time.perf_counter() - t0
+        for arch, spec in SHARDED_TRAIN.items():
+            t0 = time.perf_counter()
+            train_launches[arch] = sharded_train_cell(torch, dev, arch, spec)
+            seconds[f"sharded_train_{arch}"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     twins = examples_phase(torch, dev)
     seconds["examples"] = time.perf_counter() - t0
@@ -2284,7 +2636,7 @@ def sharded_phases(torch, dev):
     dryrun_phase(torch)
     seconds["dryrun"] = time.perf_counter() - t0
     emit("sharded_phases_seconds", **seconds)
-    return train_launches, prefill_launches, twins
+    return train_launches, prefill_launches, decode_launches, twins
 
 
 def amazon_phase(torch, dev, rates):
@@ -4259,8 +4611,8 @@ def run(dev) -> int:
     train_launches, train_err, train_grad = train_phase(torch, dev)
 
     # 8b. the sharded path, the example twins, the dry runs -----------------
-    sharded_launches, sharded_prefill_launches, twins = sharded_phases(
-        torch, dev)
+    (sharded_launches, sharded_prefill_launches, sharded_decode_launches,
+     twins) = sharded_phases(torch, dev)
     csr_row.update(examples_launches={
         k: v for k, v in twins.items() if k != "serve_decode_torch"})
 
@@ -4277,8 +4629,9 @@ def run(dev) -> int:
         library_ms=flash["library_ms"],
         launches_per_prefill={ARCH: served["launches"], **family_launches},
         launches_per_train_step=train_launches, under_autograd=train_grad,
-        launches_per_sharded_train_step={ARCH: sharded_launches},
-        launches_per_sharded_prefill={ARCH: sharded_prefill_launches},
+        launches_per_sharded_train_step=sharded_launches,
+        launches_per_sharded_prefill=sharded_prefill_launches,
+        launches_per_sharded_decode_step=sharded_decode_launches,
         launches_per_example_prefill={
             "serve_decode_torch": twins["serve_decode_torch"]},
         mla_d192=flash["mla"], window_d120=flash["window"])

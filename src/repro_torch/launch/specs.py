@@ -90,26 +90,25 @@ def make_cell_rules(cfg: ModelConfig, shape: ShapeConfig, mesh,
     )
 
 
-def _flat_cache(cache, logical, prefix=""):
+def serve_rules(cfg: ModelConfig, run: RunConfig, mesh, batch: int,
+                max_seq: int):
+    """The rules of a serving run of ``batch`` requests over a
+    ``max_seq``-slot cache on ``mesh``: :func:`make_cell_rules` of that
+    decode cell, so the batch shards when it divides the batch shards,
+    and otherwise, under ``run.seq_shard_decode``, the attention caches'
+    sequence does (JAX's rule for its decode cells).  The model, its
+    cache (:func:`~repro_torch.models.transformer.init_cache`) and the
+    serving steps all take these."""
+    return make_cell_rules(cfg, ShapeConfig("serve", "decode", max_seq,
+                                            batch), mesh, run)
+
+
+def _flat_cache(cache, logical):
     """The cache tree's leaves and their logical axes as two flat dicts
     keyed by path (``layers/k``, ``tail/0/conv_x``, ...)."""
-    leaves, axes = {}, {}
-    if isinstance(cache, dict):
-        items = [(k, cache[k], logical[k]) for k in cache]
-    elif isinstance(cache, list):
-        items = [(str(i), c, lg) for i, (c, lg) in
-                 enumerate(zip(cache, logical))]
-    else:  # a cache tuple (AttnCache, MLACache)
-        items = [(f, getattr(cache, f), getattr(logical, f))
-                 for f in cache._fields]
-    for k, c, lg in items:
-        if isinstance(c, torch.Tensor):
-            leaves[prefix + k], axes[prefix + k] = c, lg
-        else:
-            sub_l, sub_a = _flat_cache(c, lg, prefix + k + "/")
-            leaves.update(sub_l)
-            axes.update(sub_a)
-    return leaves, axes
+    flat = tfm.flat_cache(cache, logical)
+    return ({k: c for k, (c, _) in flat.items()},
+            {k: lg for k, (_, lg) in flat.items()})
 
 
 def build_cell(arch: str, shape_name: str, mesh: Mapping,

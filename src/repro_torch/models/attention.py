@@ -21,7 +21,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config.base import ModelConfig, RunConfig
 from ..kernels import ops as kops
-from ..sharding.rules import axis_sizes, gathered, placements
+from ..sharding.rules import gathered, model_shards, run_local, write_into
 from .layers import apply_rope, linear, rms_norm, rope_tables
 from .params import ParamDef
 
@@ -225,19 +225,8 @@ def head_shards(mesh, n_heads: int, n_kv_heads: int) -> int:
     groups of its kv heads (model = 2, H 32, Hkv 8: rank 0 holds q heads
     0-15 and kv heads 0-3).  JAX pads an uneven split (GSPMD); a
     ``local_map`` cannot, so this raises."""
-    model = axis_sizes(mesh).get("model", 1)
-    if n_heads % model or n_kv_heads % model:
-        raise ValueError(f"{n_heads} q heads and {n_kv_heads} kv heads do "
-                         f"not split evenly over a model axis of {model}")
-    return model
-
-
-def _contiguous(grad: torch.Tensor) -> torch.Tensor:
-    """A local gradient leaving ``local_map`` made contiguous: the core's
-    einsums return permuted gradients, and the DTensor ``view`` of the
-    projection's backward cannot take one whose strides swap two dims of
-    equal size (T = the rank's feature width)."""
-    return grad.contiguous()
+    model_shards(mesh, n_heads, "q heads")
+    return model_shards(mesh, n_kv_heads, "kv heads")
 
 
 class AttentionCore(nn.Module):
@@ -266,25 +255,17 @@ class AttentionCore(nn.Module):
 
     def _local(self, q, k, v, q_pos, kv_pos):
         """The core on one rank's local tensors (inside ``local_map``)."""
-        for t in (q, k, v):
-            if t.requires_grad:  # see _contiguous
-                t.register_hook(_contiguous)
         return self._core(*(t.contiguous() for t in (q, k, v, q_pos,
                                                       kv_pos)))
 
     def forward(self, q, k, v, q_pos, kv_pos, shard=None):
         if shard is None:
             return self._core(q, k, v, q_pos, kv_pos)
-        from torch.distributed.tensor.experimental import local_map
-
-        mesh, rules = shard
-        head_shards(mesh, q.shape[2], k.shape[2])
-        heads = placements(mesh, rules, ("batch", "seq", "heads_flat", None))
-        pos = placements(mesh, rules, ("batch", "seq"))
-        return local_map(self._local, out_placements=heads,
-                         in_placements=(heads, heads, heads, pos, pos),
-                         device_mesh=mesh, redistribute_inputs=True)(
-            q, k, v, q_pos, kv_pos)
+        head_shards(shard[0], q.shape[2], k.shape[2])
+        heads = ("batch", "seq", "heads_flat", None)
+        pos = ("batch", "seq")
+        return run_local(self._local, shard, (heads, heads, heads, pos, pos),
+                         heads, q, k, v, q_pos, kv_pos)
 
 
 def _ring_loss(T: int, cache_pos: int, S: int, window: Optional[int]) -> bool:
@@ -331,7 +312,10 @@ class GQA(nn.Module):
         earlier query of the same write still sees raises (the keys are
         attended after the write).  ``shard=(mesh, rules)``: x, positions
         and the weights are DTensors, the core runs on each rank's heads
-        (:class:`AttentionCore`); no cache then (the model refuses one).
+        (:class:`AttentionCore`), and a cache placed by its logical axes
+        (``kv_seq``: the sequence split over the batch axes) takes each
+        rank's part of the write (:func:`~repro_torch.sharding.rules.
+        write_into`) and is read whole on the sequence by the core.
         Returns ``(out (B, T, d), cache)``."""
         cfg = self.cfg
         B, T, _ = x.shape
@@ -357,9 +341,9 @@ class GQA(nn.Module):
                 raise ValueError(f"{T} new keys at position {cache_pos} "
                                  f"overwrite keys of a {S}-slot ring that "
                                  "earlier queries of the write still see")
-            cache.k[:, write:write + T] = k.reshape(B, T, Hkv * hd)
-            cache.v[:, write:write + T] = v.reshape(B, T, Hkv * hd)
-            cache.pos[:, write:write + T] = positions
+            write_into(cache.k, k.reshape(B, T, Hkv * hd), 1, write)
+            write_into(cache.v, v.reshape(B, T, Hkv * hd), 1, write)
+            write_into(cache.pos, positions, 1, write)
             k = cache.k.view(B, S, Hkv, hd).to(x.dtype)
             v = cache.v.view(B, S, Hkv, hd).to(x.dtype)
             kv_pos = cache.pos
@@ -437,14 +421,27 @@ class MLA(nn.Module):
                 shard=None):
         """x (B, T, d), positions (B, T) int32; with a cache (one layer's
         :class:`MLACache`) the new entries go to slots ``cache_pos``
-        onward.  Returns ``(out (B, T, d), cache)``.  Not under a mesh
-        yet: ``shard`` must be None."""
-        if shard is not None:
-            raise NotImplementedError("MLA under a mesh is not ported yet")
+        onward.  Returns ``(out (B, T, d), cache)``.
+
+        Under ``shard=(mesh, rules)`` (DTensors) the low-rank projections
+        are DTensor ops: q arrives split on heads over the model axis
+        (``wq_b`` on ``"heads_flat"``), the compressed kv and the rope key
+        whole on every rank (``"lora"`` is replicated).  The prefill
+        decompresses K and V on each rank's own heads (:func:`_expand`,
+        through ``local_map``; ``wk_b`` and ``wv_b`` are on
+        ``"heads_flat"``), broadcasts the rope key to them, pads V to the
+        qk head dim and runs the shared core on those heads.  The cache's
+        sequence is on the model axis (``"mla_seq"``): each rank writes
+        its part of the new slots, and the absorbed decode gathers the
+        sequence whole on every rank (:func:`_absorbed`, through
+        ``local_map``: one all-gather of the compressed cache, the rope
+        key and the positions per layer and token)."""
         cfg, m = self.cfg, self.cfg.mla
         B, T, _ = x.shape
         H, dtype = cfg.n_heads, x.dtype
         nope, rope, L = m.nope_head_dim, m.rope_head_dim, m.kv_lora_rank
+        if shard is not None:
+            model_shards(shard[0], H, f"{cfg.name}: the MLA heads")
         q = rms_norm(linear(self.wq_a, x), self.q_norm, cfg.norm_eps)
         q = linear(self.wq_b, q).reshape(B, T, H, nope + rope)
         q_nope, q_rope = q.split([nope, rope], dim=-1)
@@ -460,35 +457,62 @@ class MLA(nn.Module):
             if cache_pos + T > S:
                 raise ValueError(f"{T} new entries at slot {cache_pos} "
                                  f"overflow a cache of {S} slots")
-            cache.ckv[:, cache_pos:cache_pos + T] = ckv
-            cache.krope[:, cache_pos:cache_pos + T] = krope
-            cache.pos[:, cache_pos:cache_pos + T] = positions
+            write_into(cache.ckv, ckv, 1, cache_pos)
+            write_into(cache.krope, krope, 1, cache_pos)
+            write_into(cache.pos, positions, 1, cache_pos)
             ckv, krope = cache.ckv.to(dtype), cache.krope.to(dtype)
             kv_pos = cache.pos
         S = ckv.shape[1]
         wk_b = self.wk_b.weight.T.to(dtype).reshape(L, H, nope)
         wv_b = self.wv_b.weight.T.to(dtype).reshape(L, H, m.v_head_dim)
+        heads = ("batch", "seq", "heads_flat", None)
+        whole = ("batch", "seq", None)
+        w_heads = (None, "heads_flat", None)
         if T == 1 and S > 1:
-            scale = 1.0 / math.sqrt(nope + rope)
-            q_abs = torch.einsum("bthn,lhn->bthl", q_nope, wk_b)
-            s = torch.einsum("bthl,bsl->bhts", q_abs.float(), ckv.float())
-            s = s + torch.einsum("bthr,bsr->bhts", q_rope.float(),
-                                 krope.float())
-            s = s * scale + _bias(positions, kv_pos, None)[:, None]
-            w = torch.softmax(s, dim=-1)
-            ctx = torch.einsum("bhts,bsl->bthl", w.to(dtype).float(),
-                               ckv.float())
-            out = torch.einsum("bthl,lhv->bthv", ctx.to(dtype).float(),
-                               wv_b.float()).to(dtype)
+            out = run_local(_absorbed, shard,
+                            (heads, heads, whole, whole, ("batch", "seq"),
+                             ("batch", "seq"), w_heads, w_heads),
+                            heads, q_nope, q_rope, ckv, krope, positions,
+                            kv_pos, wk_b, wv_b)
         else:
-            k_nope = torch.einsum("bsl,lhn->bshn", ckv, wk_b)
-            v = torch.einsum("bsl,lhv->bshv", ckv, wv_b)
-            k = torch.cat([k_nope, krope[:, :, None, :].expand(
-                B, S, H, rope)], dim=-1)
+            k, v = run_local(_expand, shard,
+                             (whole, whole, w_heads, w_heads),
+                             [heads, heads], ckv, krope, wk_b, wv_b)
             qq = torch.cat([q_nope, q_rope], dim=-1)
-            # V zero-padded to the qk head dim for the shared core, then
-            # sliced back
-            v = F.pad(v, (0, nope + rope - m.v_head_dim))
-            out = self.core(qq, k, v, positions, kv_pos)[..., :m.v_head_dim]
+            out = self.core(qq, k, v, positions, kv_pos,
+                            shard=shard)[..., :m.v_head_dim]
         out = out.reshape(B, T, H * m.v_head_dim)
         return linear(self.wo, out), cache
+
+
+def _expand(ckv, krope, wk_b, wv_b):
+    """MLA's per-head K and V from the compressed cache, on plain tensors
+    (one rank's heads under a mesh): K = [ckv wk_b, the rope key
+    broadcast to every head], V = ckv wv_b zero-padded to K's head dim
+    (the shared core takes one head dim; the caller slices V's width back
+    after it).  ckv (B, S, L), krope (B, S, rope), wk_b (L, H, nope), wv_b
+    (L, H, v)."""
+    B, S, _ = ckv.shape
+    H, rope = wk_b.shape[1], krope.shape[-1]
+    k_nope = torch.einsum("bsl,lhn->bshn", ckv, wk_b)
+    v = torch.einsum("bsl,lhv->bshv", ckv, wv_b)
+    k = torch.cat([k_nope, krope[:, :, None, :].expand(B, S, H, rope)],
+                  dim=-1)
+    return k, F.pad(v, (0, k.shape[-1] - v.shape[-1]))
+
+
+def _absorbed(q_nope, q_rope, ckv, krope, q_pos, kv_pos, wk_b, wv_b):
+    """MLA's absorbed single-query decode on plain tensors (one rank's
+    heads, the whole cache, under a mesh): ``wk_b`` folded into the query
+    and ``wv_b`` applied after the weighted sum, scores in f32, per-head
+    K and V never built.  Returns (B, 1, H, v) in the query's dtype."""
+    dtype = q_nope.dtype
+    scale = 1.0 / math.sqrt(q_nope.shape[-1] + q_rope.shape[-1])
+    q_abs = torch.einsum("bthn,lhn->bthl", q_nope, wk_b)
+    s = torch.einsum("bthl,bsl->bhts", q_abs.float(), ckv.float())
+    s = s + torch.einsum("bthr,bsr->bhts", q_rope.float(), krope.float())
+    s = s * scale + _bias(q_pos, kv_pos, None)[:, None]
+    w = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bhts,bsl->bthl", w.to(dtype).float(), ckv.float())
+    return torch.einsum("bthl,lhv->bthv", ctx.to(dtype).float(),
+                        wv_b.float()).to(dtype)

@@ -46,8 +46,10 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 
 def linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     """``x`` through a bias-free ``nn.Linear`` whose weight is cast to
-    x's dtype, as JAX's ``x @ w.astype(dtype)``."""
-    return F.linear(x, lin.weight.to(x.dtype))
+    x's dtype, as JAX's ``x @ w.astype(dtype)``; a DTensor weight with
+    its FSDP shards gathered first (:func:`~repro_torch.sharding.rules.
+    gathered`)."""
+    return F.linear(x, gathered(lin.weight).to(x.dtype))
 
 
 def mlp_defs(d_model: int, d_ff: int) -> dict[str, ParamDef]:

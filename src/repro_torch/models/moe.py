@@ -18,6 +18,7 @@ kernel here.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -26,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config.base import ModelConfig
+from ..sharding.rules import axis_sizes, local_box, placements, run_local
 from .layers import MLP, mlp_defs
 from .params import ParamDef, prefixed
 
@@ -82,16 +84,31 @@ def route(x: torch.Tensor, router: torch.Tensor, top_k: int):
     return probs, gate / gate.sum(-1, keepdim=True).clamp(min=1e-9), ids
 
 
-def switch_aux(cfg: ModelConfig, probs: torch.Tensor,
-               ids: torch.Tensor) -> torch.Tensor:
-    """Switch-style load-balancing loss over all tokens (f32 scalar)."""
+def aux_parts(cfg: ModelConfig, probs: torch.Tensor, ids: torch.Tensor,
+              n_tok: int, shards: int = 1):
+    """The Switch loss's two per-expert means over all ``n_tok`` routed
+    tokens, from the ``probs`` and ``ids`` of some of them: ``(sum of
+    probs / n_tok, their top-k counts / (n_tok * top_k))``, both (E,) f32
+    and each divided by ``shards``, so that the parts of every token's
+    shard (and of each of ``shards`` ranks routing the same tokens) sum
+    to the global means (:func:`switch_aux`)."""
     mo = cfg.moe
     flat = ids.reshape(-1)
-    n_tok = flat.numel() // mo.top_k
-    me = probs.reshape(n_tok, mo.n_experts).mean(0)
+    rows = probs.reshape(-1, mo.n_experts)
+    me = (rows.mean(0) if shards == 1 and rows.shape[0] == n_tok
+          else rows.sum(0) / n_tok / shards)
     ce = torch.zeros(mo.n_experts, dtype=torch.float32, device=probs.device)
-    ce.index_add_(0, flat, torch.full(flat.shape, 1.0 / (n_tok * mo.top_k),
+    ce.index_add_(0, flat, torch.full(flat.shape,
+                                      1.0 / (n_tok * mo.top_k * shards),
                                       device=probs.device))
+    return me, ce
+
+
+def switch_aux(cfg: ModelConfig, me: torch.Tensor,
+               ce: torch.Tensor) -> torch.Tensor:
+    """The Switch-style load-balancing loss over all tokens (f32 scalar)
+    from :func:`aux_parts`' global means."""
+    mo = cfg.moe
     return mo.n_experts * torch.sum(me * ce) * mo.router_aux_weight
 
 
@@ -159,12 +176,13 @@ class MoE(nn.Module):
             self.shared = MLP(d, mo.d_ff_shared * mo.n_shared_experts)
 
     def forward(self, x: torch.Tensor, groups: Optional[int] = None,
-                dense_eval: bool = False):
-        return moe_apply(self, x, groups=groups, dense_eval=dense_eval)
+                dense_eval: bool = False, shard=None):
+        return moe_apply(self, x, groups=groups, dense_eval=dense_eval,
+                         shard=shard)
 
 
 def moe_apply(moe: MoE, x: torch.Tensor, groups: Optional[int] = None,
-              dense_eval: bool = False):
+              dense_eval: bool = False, shard=None):
     """x (B, T, d) -> ``(y (B, T, d), aux)``, as JAX's ``moe_apply``.
 
     ``groups=None`` is one flat capacity buffer over all B * T tokens;
@@ -173,39 +191,97 @@ def moe_apply(moe: MoE, x: torch.Tensor, groups: Optional[int] = None,
     every token and combines with the zero-masked gate matrix: no
     capacity, no drops.  Dropped pairs (past the capacity) add nothing:
     they are masked out of the scatter and their gate is 0 in the gather.
-    """
+
+    Under ``shard=(mesh, rules)`` (DTensors) the routed body runs once per
+    rank through ``local_map`` (:func:`_routed`): every model rank routes
+    the same tokens and computes its own experts' part (``"expert"``
+    mode: experts on the model axis, an uneven split as DTensor splits
+    it) or every expert's part over its own slice of each expert's ffn
+    (``"tensor"`` mode), the expert weights' FSDP shards gathered first;
+    the output leaves as a partial sum over the model axis, reduced into
+    the residual's placement.  An uneven split can leave a rank no
+    expert (40 over 16 ranks: 3 each, then 1, then none): its part is 0.  The capacity, the sort and the drops are
+    JAX's whatever the layout: a data shard routes its own rows only
+    where its rows are whole groups (``groups`` a multiple of the batch
+    shards); otherwise every rank routes all B * T tokens (gathered over
+    the batch axes).  The aux loss's means are reduced over every rank
+    that routed a share of the tokens, then combined: the global loss."""
     cfg = moe.cfg
     mo = cfg.moe
     B, T, d = x.shape
-    dtype = x.dtype
     n_tok = B * T
     G = groups or 1
     if n_tok % G:
         raise ValueError(f"{n_tok} tokens do not split into {G} groups")
-    ng = n_tok // G
-    xg = x.reshape(G, ng, d)
-    probs, gate_vals, expert_ids = route(xg, moe.router, mo.top_k)
-    aux = switch_aux(cfg, probs, expert_ids)
+    ins = [("batch", "seq", None), (None, None),
+           ("experts", None, "expert_ff"), ("experts", None, "expert_ff"),
+           ("experts", "expert_ff", None)]
+    split, shards, e0 = ("batch", "model"), 1, 0
+    if shard is not None:
+        mesh, rules = shard
+        sizes = axis_sizes(mesh)
+        b_axes = rules.table["batch"] or ()
+        b_axes = (b_axes,) if isinstance(b_axes, str) else b_axes
+        dp = math.prod(sizes[a] for a in b_axes)
+        if G % dp:  # a group spans data shards: route every token
+            ins[0], split, dp = (None, "seq", None), ("model",), 1
+        G //= dp
+        shards = sizes.get("model", 1)
+        e0 = local_box(tuple(moe.w_gate.shape), mesh, placements(
+            mesh, rules, ins[2]))[0][0]
+    out = ("partial",) + ins[0]
+    y, me, ce = run_local(
+        functools.partial(_routed, cfg, G, n_tok, e0, shards, dense_eval),
+        shard, tuple(ins), [out, ("partial", None), ("partial", None)],
+        x, moe.router, moe.w_gate, moe.w_up, moe.w_down, split=split)
+    if shard is not None:  # the partial means reduced (a collective each)
+        me, ce = me.full_tensor(), ce.full_tensor()
+    aux = switch_aux(cfg, me, ce)
+    if mo.n_shared_experts:
+        y = y + moe.shared(x)
+    return y, aux
 
+
+def _routed(cfg: ModelConfig, groups: int, n_tok: int, e0: int, shards: int,
+            dense_eval: bool, x, router, w_gate, w_up, w_down):
+    """The routed experts on plain tensors (one rank's part under a
+    mesh): x (B, T, d) in ``groups`` groups, routed over all E experts by
+    ``router`` (d, E); the expert stacks hold experts ``e0`` onward (all
+    of them, or the rank's own) and all of each one's ffn or a slice of
+    it.  Returns ``(y (B, T, d): the sum over these experts and ffn
+    columns, the aux loss's two parts over ``n_tok`` tokens, divided by
+    ``shards``)`` (:func:`aux_parts`)."""
+    mo = cfg.moe
+    B, T, d = x.shape
+    dtype = x.dtype
+    ng = B * T // groups
+    xg = x.reshape(groups, ng, d)
+    probs, gate_vals, expert_ids = route(xg, router, mo.top_k)
+    me, ce = aux_parts(cfg, probs, expert_ids, n_tok, shards)
+    n_local = w_gate.shape[0]
     if dense_eval:
-        gates = torch.zeros((G, ng, mo.n_experts), dtype=dtype,
+        gates = torch.zeros((groups, ng, mo.n_experts), dtype=dtype,
                             device=x.device)
         for s in range(mo.top_k):
             gates.scatter_add_(-1, expert_ids[..., s:s + 1],
                                gate_vals[..., s:s + 1].to(dtype))
-        h_g = torch.einsum("gnd,edf->gnef", xg, moe.w_gate.to(dtype))
-        h_u = torch.einsum("gnd,edf->gnef", xg, moe.w_up.to(dtype))
+        gates = gates[..., e0:e0 + n_local]
+        h_g = torch.einsum("gnd,edf->gnef", xg, w_gate.to(dtype))
+        h_u = torch.einsum("gnd,edf->gnef", xg, w_up.to(dtype))
         y = torch.einsum("gnef,efd,gne->gnd", F.silu(h_g) * h_u,
-                         moe.w_down.to(dtype), gates)
+                         w_down.to(dtype), gates)
+    elif n_local == 0:  # an uneven split leaves the last ranks no expert
+        y = torch.zeros_like(xg)
     else:
         C = capacity(ng, cfg)
-        pos = positions_in_expert(expert_ids.reshape(G, ng * mo.top_k)
-                                  ).reshape(G, ng, mo.top_k)
-        keep = pos < C
-        buf = dispatch(xg, expert_ids, pos, keep, mo.n_experts, C)
-        out = expert_ffn(buf.view(G, mo.n_experts, C, d), moe.w_gate,
-                         moe.w_up, moe.w_down).reshape(-1, d)
-        y = combine(out, expert_ids, pos, keep, gate_vals, mo.n_experts, C)
-    if mo.n_shared_experts:
-        y = y + moe.shared(xg)
-    return y.reshape(B, T, d), aux
+        pos = positions_in_expert(expert_ids.reshape(groups, ng * mo.top_k)
+                                  ).reshape(groups, ng, mo.top_k)
+        keep, local_ids = pos < C, expert_ids
+        if n_local < mo.n_experts:  # this rank's experts only
+            keep = keep & (expert_ids >= e0) & (expert_ids < e0 + n_local)
+            local_ids = (expert_ids - e0).clamp(0, n_local - 1)
+        buf = dispatch(xg, local_ids, pos, keep, n_local, C)
+        out = expert_ffn(buf.view(groups, n_local, C, d), w_gate, w_up,
+                         w_down).reshape(-1, d)
+        y = combine(out, local_ids, pos, keep, gate_vals, n_local, C)
+    return y.reshape(B, T, d), me, ce

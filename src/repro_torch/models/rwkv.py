@@ -17,6 +17,7 @@ be shorter.  A single token with a cache takes the exact recurrence
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -24,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config.base import ModelConfig
+from ..sharding.rules import gathered, model_shards, run_local, write_into
 from .layers import linear, rms_norm
 from .params import ParamDef
 
@@ -144,15 +146,28 @@ class TimeMix(nn.Module):
         self.wA = nn.Linear(d, lora, bias=False)
         self.wB = nn.Linear(lora, d, bias=False)
 
-    def forward(self, x: torch.Tensor, cache: Optional[dict] = None):
+    def forward(self, x: torch.Tensor, cache: Optional[dict] = None,
+                shard=None):
         """x (B, T, d), the block's normed input.  ``cache``: one layer's
         ``{"state", "x_tm", ...}`` (views) or None; ``state`` and ``x_tm``
         (the last row of x) are overwritten in place.  Returns ``(out (B,
-        T, d), cache)``."""
+        T, d), cache)``.
+
+        Under ``shard=(mesh, rules)`` (DTensors) the projections, ``ln_x``
+        and the output projection are DTensor ops: r, k, v and g arrive
+        split on heads over the model axis (``"heads_flat"``), the decay
+        whole on every rank; the scan runs on each rank's own heads
+        (:func:`_wkv`, through ``local_map``; the replicated decay and
+        ``u`` sliced to them), and ``ln_x``'s RMS over all d features
+        reduces across the model axis.  The cache's state, replicated
+        over the model axis as JAX places it, is gathered back from the
+        head shards."""
         cfg = self.cfg
         B, T, d = x.shape
         H, D = d // cfg.rwkv.head_dim, cfg.rwkv.head_dim
         dtype = x.dtype
+        if shard is not None:
+            model_shards(shard[0], H, f"{cfg.name}: the WKV heads")
         xs = _shift(x, None if cache is None else cache["x_tm"])
 
         def mix(mu):
@@ -164,21 +179,34 @@ class TimeMix(nn.Module):
         g = F.silu(linear(self.wg, mix(self.mu_g)))
         w_raw = self.w0.float() + F.linear(
             torch.tanh(linear(self.wA, mix(self.mu_w))).float(),
-            self.wB.weight.float())
+            gathered(self.wB.weight).float())
         w_log = -w_raw.clamp(-20.0, 10.0).exp().reshape(B, T, H, D)
         u = self.u.float().reshape(H, D)
 
-        if T == 1 and cache is not None:
-            o, S = wkv_recurrent(r, k, v, w_log, u, cache["state"])
-        else:
-            o, S = wkv_chunked(r, k, v, w_log, u, cfg.rwkv.chunk,
-                               None if cache is None else cache["state"])
+        heads = ("batch", "seq", "heads_flat", None)
+        st = ("batch", "heads_flat", None, None)
+        o, S = run_local(
+            functools.partial(_wkv, cfg.rwkv.chunk,
+                              T == 1 and cache is not None), shard,
+            (heads, heads, heads, heads, ("heads_flat", None),
+             None if cache is None else st),
+            [heads, st], r, k, v, w_log, u,
+            None if cache is None else cache["state"])
         if cache is not None:
-            cache["state"].copy_(S)
-            cache["x_tm"].copy_(x[:, -1])
+            write_into(cache["state"], S)
+            write_into(cache["x_tm"], x[:, -1])
         o = o.reshape(B, T, d).to(dtype)
         o = rms_norm(o, self.ln_x, cfg.norm_eps) * g
         return linear(self.wo, o), cache
+
+
+def _wkv(chunk: int, step: bool, r, k, v, w_log, u, state0):
+    """The WKV scan on plain tensors (one rank's heads under a mesh):
+    :func:`wkv_chunked`, or :func:`wkv_recurrent` for one decode step
+    (``step``)."""
+    if step:
+        return wkv_recurrent(r, k, v, w_log, u, state0)
+    return wkv_chunked(r, k, v, w_log, u, chunk, state0)
 
 
 class ChannelMix(nn.Module):
@@ -205,5 +233,5 @@ class ChannelMix(nn.Module):
         k = F.relu(linear(self.wk_cm, xk)).square()
         out = torch.sigmoid(linear(self.wr_cm, xr)) * linear(self.wv_cm, k)
         if cache is not None:
-            cache["x_cm"].copy_(x[:, -1])
+            write_into(cache["x_cm"], x[:, -1])
         return out, cache

@@ -17,6 +17,7 @@ dtype, ``dt``, ``a``, the scan and its state in f32.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -24,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config.base import ModelConfig
+from ..sharding.rules import model_shards, run_local, write_into
 from .layers import linear, rms_norm
 from .params import ParamDef
 
@@ -155,40 +157,82 @@ class Mamba2(nn.Module):
         self.norm = nn.Parameter(torch.ones(di))
         self.wo = nn.Linear(di, d, bias=False)
 
-    def forward(self, x: torch.Tensor, cache: Optional[dict] = None):
+    def forward(self, x: torch.Tensor, cache: Optional[dict] = None,
+                shard=None):
         """x (B, T, d).  ``cache``: one layer's ``{"conv_x", "conv_B",
         "conv_C", "state"}`` (views into :func:`init_cache`'s stacks) or
         None; its leaves are overwritten in place with the new conv
         inputs and the final f32 state.  Returns ``(out (B, T, d),
-        cache)``."""
+        cache)``.
+
+        Under ``shard=(mesh, rules)`` (DTensors) the projections, the
+        gated norm and the output projection are DTensor ops: x, z and
+        the conv of x arrive split on ``"ff"`` over the model axis, dt
+        and B/C whole on every rank; the convs and the scan run on each
+        rank's own heads (:func:`_mix`, through ``local_map``; the
+        replicated dt, ``A_log`` and ``D`` sliced to them), and the gated
+        norm's RMS over all ``di`` features reduces across the model
+        axis.  The cache's state, replicated over the model axis as JAX
+        places it, is gathered back from the head shards."""
         s = self.cfg.ssm
         B, T, d = x.shape
         di = s.expand * d
         H = di // s.head_dim
         dtype = x.dtype
+        if shard is not None:
+            model_shards(shard[0], H, f"{self.cfg.name}: the SSD heads")
 
         z, xi = linear(self.wz, x), linear(self.wx, x)
         Bm, Cm = linear(self.wB, x), linear(self.wC, x)
         dt = F.softplus(linear(self.wdt, x).float() + self.dt_bias.float())
         state = {} if cache is None else cache
-        xi, ncx = _causal_conv(xi, self.conv_x.to(dtype), state.get("conv_x"))
-        Bm, ncB = _causal_conv(Bm, self.conv_B.to(dtype), state.get("conv_B"))
-        Cm, ncC = _causal_conv(Cm, self.conv_C.to(dtype), state.get("conv_C"))
-
-        a = -self.A_log.float().exp()  # (H,)
-        xh = xi.reshape(B, T, H, s.head_dim)
-        if T == 1 and cache is not None:  # exact single-step decode
-            y, S = ssd_step(cache["state"], xh[:, 0], dt[:, 0], a, Bm[:, 0],
-                            Cm[:, 0])
-            y = y[:, None]
-        else:
-            y, S = ssd_chunked(xh, dt, a, Bm, Cm, s.chunk, state.get("state"))
+        step = T == 1 and cache is not None  # exact single-step decode
+        feat, whole = ("batch", "seq", "ff"), ("batch", "seq", None)
+        heads = ("batch", "seq", "heads_flat")
+        taps = ((None, "ff"), (None, None), (None, None))
+        conv = (("batch", None, "ff"), ("batch", None, None),
+                ("batch", None, None))
+        st = ("batch", "heads_flat", None, None)
+        g, ncx, ncB, ncC, S = run_local(
+            functools.partial(_mix, s.head_dim, s.chunk, step), shard,
+            (feat, whole, whole, heads, feat, *taps, ("heads_flat",),
+             ("heads_flat",), *(None if cache is None else c
+                                for c in (*conv, st))),
+            [feat, *conv, st],
+            xi, Bm, Cm, dt, z, *(w.to(dtype) for w in (self.conv_x,
+                                                        self.conv_B,
+                                                        self.conv_C)),
+            self.A_log, self.D, *(state.get(k) for k in
+                                  ("conv_x", "conv_B", "conv_C", "state")))
         if cache is not None:
             for name, new in (("conv_x", ncx), ("conv_B", ncB),
                               ("conv_C", ncC), ("state", S)):
-                cache[name].copy_(new)
-
-        y = y + self.D.float()[:, None] * xh.float()
-        y = y.reshape(B, T, di).to(dtype)
-        y = rms_norm(y * F.silu(z), self.norm, self.cfg.norm_eps)
+                write_into(cache[name], new)
+        y = rms_norm(g, self.norm, self.cfg.norm_eps)
         return linear(self.wo, y), cache
+
+
+def _mix(head_dim: int, chunk: int, step: bool, xi, Bm, Cm, dt, z, conv_x,
+         conv_B, conv_C, A_log, D, cx, cB, cC, state):
+    """The Mamba2 body between the projections and the gated norm, on
+    plain tensors (one rank's heads under a mesh): the causal convs, the
+    scan (:func:`ssd_chunked`, or one :func:`ssd_step` when ``step``),
+    the ``D`` skip and the SiLU gate.  xi, z (B, T, H * head_dim), Bm, Cm
+    (B, T, N), dt (B, T, H) f32, the taps, A_log and D (H,), the cache's
+    conv inputs and state (or None).  Returns ``(y * silu(z) (B, T, H *
+    head_dim) in xi's dtype, new conv_x, conv_B, conv_C inputs, final f32
+    state)``."""
+    B, T, di = xi.shape
+    dtype = xi.dtype
+    xi, ncx = _causal_conv(xi, conv_x, cx)
+    Bm, ncB = _causal_conv(Bm, conv_B, cB)
+    Cm, ncC = _causal_conv(Cm, conv_C, cC)
+    a = -A_log.float().exp()  # (H,)
+    xh = xi.reshape(B, T, di // head_dim, head_dim)
+    if step:
+        y, S = ssd_step(state, xh[:, 0], dt[:, 0], a, Bm[:, 0], Cm[:, 0])
+        y = y[:, None]
+    else:
+        y, S = ssd_chunked(xh, dt, a, Bm, Cm, chunk, state)
+    y = y + D.float()[:, None] * xh.float()
+    return y.reshape(B, T, di).to(dtype) * F.silu(z), ncx, ncB, ncC, S

@@ -36,7 +36,8 @@ from torch.utils.checkpoint import (checkpoint,
 from ..config.base import ModelConfig, RunConfig
 from ..core.graph import resolve_device
 from ..kernels.flash_attention import keep_outputs
-from ..sharding.rules import constrain, distribute, gathered
+from ..sharding.rules import (constrain, distribute, full_placed, gathered,
+                              is_dtensor, placements)
 from .attention import (GQA, MLA, SENTINEL, AttnCache, MLACache, attn_defs,
                         mla_defs)
 from .layers import MLP, mlp_defs, rms_norm
@@ -119,9 +120,16 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
-               dtype=torch.bfloat16, device=None) -> dict:
+               dtype=torch.bfloat16, device=None, *, mesh=None,
+               rules=None) -> dict:
     """Empty decode cache, the JAX package's tree.  ``device=None`` means
-    ``"cuda"``.
+    ``"cuda"``.  Under ``mesh`` and ``rules`` (those the model is placed
+    by) every leaf is a DTensor placed by :func:`cache_logical`, each
+    rank making only its own block: the batch on the batch axes when the
+    rules shard it, the attention caches' sequence on them when the rules
+    set ``kv_seq`` (JAX's ``seq_shard_decode`` for a batch that does not
+    divide the batch shards: :func:`~repro_torch.launch.specs.
+    serve_rules`), MLA's compressed cache's sequence on the model axis.
 
     * attention families: ``{"layers": cache of the stacked blocks
       (leading dim L), "dense{i}": cache of leading dense block i}``.
@@ -136,6 +144,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
       cache at each of its sites), "tail": [{...} per tail block]}``.
     """
     dev = resolve_device(device)
+    if mesh is not None:
+        cache = init_cache(cfg, batch, max_seq, dtype, "meta")
+        logical = cache_logical(cfg, rules.table["batch"] is not None,
+                                rules.table["kv_seq"] is not None)
+        return map_cache(
+            lambda t, lg: full_placed(
+                t.shape, SENTINEL if t.dtype == torch.int32 else 0, mesh,
+                placements(mesh, rules, lg), dtype=t.dtype, device=dev),
+            cache, logical)
     d = cfg.d_model
 
     def zeros(*shape, dt=dtype):
@@ -188,6 +205,39 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     for i in range(first):
         cache[f"dense{i}"] = one(())
     return cache
+
+
+def map_cache(fn, cache, *trees, path=None):
+    """:func:`init_cache`'s tree with ``fn(leaf, *the same leaf of each
+    of trees)`` at every leaf (dicts, lists and cache tuples kept).  Given
+    ``path`` (a prefix, ``""`` at the root), ``fn`` takes the leaf's path
+    first: dict keys, list indices and cache-tuple fields joined by "/"
+    (``layers/k``, ``tail/0/conv_x``)."""
+    def sub(key, v, i):
+        return map_cache(fn, v, *(t[i] for t in trees),
+                         path=None if path is None else f"{path}{key}/")
+
+    if isinstance(cache, dict):
+        return {k: sub(k, v, k) for k, v in cache.items()}
+    if isinstance(cache, list):
+        return [sub(i, v, i) for i, v in enumerate(cache)]
+    if isinstance(cache, tuple):
+        return type(cache)(*(sub(f, v, i) for i, (f, v) in
+                             enumerate(zip(cache._fields, cache))))
+    return fn(cache, *trees) if path is None else fn(path[:-1], cache,
+                                                     *trees)
+
+
+def flat_cache(cache, *trees) -> dict:
+    """``{path: leaf}`` of a cache tree (:func:`map_cache`'s paths), or
+    ``{path: (leaf, *the same leaf of each of trees)}`` given trees."""
+    out = {}
+
+    def put(path, leaf, *others):
+        out[path] = (leaf, *others) if trees else leaf
+
+    map_cache(put, cache, *trees, path="")
+    return out
 
 
 def cache_logical(cfg: ModelConfig, batch_shardable: bool,
@@ -269,8 +319,24 @@ def _at(tree, *idx):
     """A view of one block's cache in a stacked cache tree (a dict or
     cache tuple of tensors with leading dims ``idx``)."""
     if isinstance(tree, dict):
-        return {k: v[idx] for k, v in tree.items()}
-    return type(tree)(*(t[idx] for t in tree))
+        return {k: _pick(v, idx) for k, v in tree.items()}
+    return type(tree)(*(_pick(t, idx) for t in tree))
+
+
+def _pick(t, idx):
+    """``t[idx]`` (leading dims, never sharded: ``"layers"`` replicates).
+    A DTensor's is rebuilt from its local block's view: DTensor's own view
+    ops refuse, under inference mode, a tensor made outside it."""
+    if not is_dtensor(t):
+        return t[idx]
+    from torch.distributed.tensor import DTensor, Shard
+
+    n = len(idx)
+    return DTensor.from_local(
+        t.to_local()[idx], t.device_mesh,
+        [Shard(p.dim - n) if isinstance(p, Shard) else p
+         for p in t.placements],
+        run_check=False, shape=t.shape[n:], stride=t.stride()[n:])
 
 
 class Block(nn.Module):
@@ -293,15 +359,17 @@ class Block(nn.Module):
     def forward(self, x, positions, cache=None, cache_pos=0, shard=None):
         """Returns ``(x, cache, aux)``; ``aux`` is the MoE's load-balancing
         loss (f32 scalar), 0 for an MLP block.  ``shard=(mesh, rules)``
-        runs a GQA block on DTensors (:class:`~repro_torch.models.
-        attention.GQA`)."""
+        runs the block on DTensors (:class:`~repro_torch.models.attention.
+        GQA`, :class:`~repro_torch.models.attention.MLA`,
+        :class:`~repro_torch.models.moe.MoE`)."""
         h, cache = self.attn(rms_norm(x, self.ln1, self.eps), positions,
                              cache, cache_pos, shard)
         x = x + h
         h = rms_norm(x, self.ln2, self.eps)
         if hasattr(self, "moe"):
             h, aux = self.moe(h, groups=self.run.moe_groups,
-                              dense_eval=self.run.moe_dense_eval)
+                              dense_eval=self.run.moe_dense_eval,
+                              shard=shard)
         else:
             h, aux = self.mlp(h), torch.zeros((), device=x.device)
         return x + h, cache, aux
@@ -320,8 +388,9 @@ class RWKVBlock(nn.Module):
         self.time_mix = TimeMix(cfg)
         self.channel_mix = ChannelMix(cfg)
 
-    def forward(self, x, cache=None):
-        x = x + self.time_mix(rms_norm(x, self.ln1, self.eps), cache)[0]
+    def forward(self, x, cache=None, shard=None):
+        x = x + self.time_mix(rms_norm(x, self.ln1, self.eps), cache,
+                              shard)[0]
         return x + self.channel_mix(rms_norm(x, self.ln2, self.eps), cache)[0]
 
 
@@ -334,20 +403,8 @@ class MambaBlock(nn.Module):
         self.ln = nn.Parameter(torch.ones(cfg.d_model))
         self.ssm = Mamba2(cfg)
 
-    def forward(self, x, cache=None):
-        return x + self.ssm(rms_norm(x, self.ln, self.eps), cache)[0]
-
-
-def check_mesh_family(cfg: ModelConfig):
-    """Raise for a family that does not run under a mesh yet: the GQA
-    dense families (qwen3, qwen1.5, danube3's window, musicgen, pixtral's
-    prefix, deepseek-coder) do."""
-    for what, part in (("MoE", cfg.moe), ("MLA", cfg.mla),
-                       ("the Mamba2 hybrid", cfg.ssm), ("RWKV6", cfg.rwkv)):
-        if part is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: {what} under a mesh is not ported yet; run it "
-                "without a mesh")
+    def forward(self, x, cache=None, shard=None):
+        return x + self.ssm(rms_norm(x, self.ln, self.eps), cache, shard)[0]
 
 
 class Transformer(nn.Module):
@@ -403,17 +460,23 @@ class Transformer(nn.Module):
             return [self.shared.attn.core] * zamba_plan(self.cfg)[0]
         return [blk.attn.core for blk in self.blocks()]
 
-    def _super_block(self, x, positions, s, cache, cache_pos):
+    def _super_block(self, x, positions, s, cache, cache_pos, shard=None):
         """The hybrid's super-block ``s``: its ``per`` Mamba2 blocks, then
         the shared block with that site's attention cache.  Returns ``(x,
         aux)``."""
         per = self.cfg.ssm.attn_every
         for j in range(per):
             c = None if cache is None else _at(cache["mamba"], s, j)
-            x = self.layers[s * per + j](x, c)
+            x = self._held(self.layers[s * per + j](x, c, shard))
         c = None if cache is None else _at(cache["attn"], s)
-        x, _, a = self.shared(x, positions, c, cache_pos)
+        x, _, a = self.shared(x, positions, c, cache_pos, shard)
         return x, a
+
+    def _held(self, x):
+        """The residual stream held to ``("batch", "seq", "act_embed")``
+        (a no-op without a mesh)."""
+        return constrain(x, self.mesh, self.rules,
+                         ("batch", "seq", "act_embed"))
 
     def forward(self, tokens: torch.Tensor, positions: torch.Tensor,
                 cache: Optional[dict] = None, cache_pos: int = 0, *,
@@ -430,59 +493,61 @@ class Transformer(nn.Module):
         Under the mesh and rules the parameters were placed by
         (:attr:`mesh`, :attr:`rules`) the inputs are placed on the batch
         axes, the residual stream is held to ``("batch", "seq",
-        "act_embed")`` after the embedding and after every stacked block,
-        and the logits come back a DTensor held to ``("batch", "seq",
-        "logit_vocab")``: JAX's constraints.  The GQA dense families run
-        there, without a cache (:func:`check_mesh_family`)."""
+        "act_embed")`` after the embedding and after every block (JAX's
+        constraint after every stacked block, the RWKV body and the
+        hybrid's super-block; here also after each Mamba2 block, whose
+        output projection leaves a partial sum), and the logits come back
+        a DTensor held to ``("batch", "seq", "logit_vocab")``.  Every
+        family runs there.  A cache under a mesh is one placed by
+        :func:`init_cache` with the mesh and rules (each leaf by
+        :func:`cache_logical`); it is written in place, each rank its own
+        block."""
         mesh, rules = self.mesh, self.rules
         shard = None if mesh is None else (mesh, rules)
         if shard is not None:
-            check_mesh_family(self.cfg)
-            if cache is not None:
-                raise NotImplementedError(
-                    "decode and the cache-writing prefill under a mesh are "
-                    "not ported yet: run them without a mesh")
             tokens = distribute(tokens, mesh, rules, ("batch", "seq"))
             positions = distribute(positions, mesh, rules, ("batch", "seq"))
             if prefix_embeds is not None:
                 prefix_embeds = distribute(prefix_embeds, mesh, rules,
                                            ("batch", "seq", "act_embed"))
-        batch_logical = ("batch", "seq", "act_embed")
         dtype = getattr(torch, self.run.compute_dtype)
         x = F.embedding(tokens, gathered(self.embed.weight)).to(dtype)
         if prefix_embeds is not None:
             B, P = prefix_embeds.shape[:2]
-            x = constrain(x, mesh, rules, batch_logical)
+            x = self._held(x)
             x = torch.cat([prefix_embeds.to(dtype), x], dim=1)
             ppos = torch.arange(P, dtype=torch.int32,
                                 device=tokens.device).expand(B, P)
             if shard is not None:
                 ppos = distribute(ppos, mesh, rules, ("batch", "seq"))
             positions = torch.cat([ppos, positions + P], dim=1)
-        x = constrain(x, mesh, rules, batch_logical)
+        x = self._held(x)
         aux = torch.zeros((), device=x.device)
         mode = self.run.remat if cache is None else "none"
         if self.cfg.rwkv is not None:
             for i, block in enumerate(self.layers):
-                x = remat(block, mode)(x, None if cache is None
-                                       else _at(cache, i))
+                x = self._held(remat(block, mode)(
+                    x, None if cache is None else _at(cache, i), shard))
         elif self.cfg.ssm is not None:
             for s in range(zamba_plan(self.cfg)[0]):
                 x, a = remat(self._super_block, mode)(x, positions, s, cache,
-                                                      cache_pos)
+                                                      cache_pos, shard)
+                x = self._held(x)
                 aux = aux + a
             for t, block in enumerate(self.tail):
-                x = block(x, None if cache is None else cache["tail"][t])
+                x = self._held(block(x, None if cache is None
+                                     else cache["tail"][t], shard))
         else:
             for i, block in enumerate(self.dense):
                 c = None if cache is None else cache[f"dense{i}"]
-                x, _, a = block(x, positions, c, cache_pos)
+                x, _, a = block(x, positions, c, cache_pos, shard)
+                x = self._held(x)
                 aux = aux + a
             for i, block in enumerate(self.layers):
                 c = None if cache is None else _at(cache["layers"], i)
                 x, _, a = remat(block, mode)(x, positions, c, cache_pos,
                                              shard)
-                x = constrain(x, mesh, rules, batch_logical)
+                x = self._held(x)
                 aux = aux + a
         x = rms_norm(x, self.final_ln, self.cfg.norm_eps)
         w = gathered(self.embed.weight if self.cfg.tie_embeddings

@@ -33,11 +33,9 @@ def _arange_positions(B: int, T: int, device) -> torch.Tensor:
     return torch.arange(T, dtype=torch.int32, device=device).repeat(B, 1)
 
 
-def _no_mesh(mesh, what: str):
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{what} under a mesh is not ported yet (it comes with "
-            "seq_shard_decode): run it without a mesh")
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor gathered whole on every rank; a plain tensor as it is."""
+    return t.full_tensor() if is_dtensor(t) else t
 
 
 def make_prefill_step(cfg: ModelConfig, run: RunConfig, mesh=None,
@@ -60,8 +58,8 @@ def make_prefill_step(cfg: ModelConfig, run: RunConfig, mesh=None,
         check_placed(model, mesh, rules)
         if positions is None:
             positions = _arange_positions(*tokens.shape, tokens.device)
-        logits = model(tokens, positions, prefix_embeds=prefix_embeds)[0]
-        return logits.full_tensor() if is_dtensor(logits) else logits
+        return _whole(model(tokens, positions,
+                            prefix_embeds=prefix_embeds)[0])
 
     return prefill_step
 
@@ -71,17 +69,23 @@ def make_prefill_cache_step(cfg: ModelConfig, run: RunConfig, mesh=None,
     """Prefill that also fills the decode cache from slot 0:
     ``(model, tokens, cache[, prefix_embeds]) -> (logits (B, P + T, V),
     cache)``.  The prefix fills slots 0..P-1, so decode goes on at
-    ``cache_pos = P + T``.  Under a mesh it raises: not ported yet."""
-    _no_mesh(mesh, "the cache-writing prefill")
+    ``cache_pos = P + T``.
+
+    With ``mesh`` and ``rules`` (the model placed by them, the cache by
+    :func:`~repro_torch.models.transformer.init_cache` with them: rules
+    from :func:`~repro_torch.launch.specs.serve_rules`) each rank writes
+    its own block of every cache leaf, and the logits are the whole
+    tensor on every rank."""
 
     @torch.inference_mode()
     def prefill(model: Transformer, tokens: torch.Tensor, cache,
                 prefix_embeds: Optional[torch.Tensor] = None):
         _checked(model, cfg, run)
+        check_placed(model, mesh, rules)
         positions = _arange_positions(*tokens.shape, tokens.device)
         logits, cache, _ = model(tokens, positions, cache=cache, cache_pos=0,
                                  prefix_embeds=prefix_embeds)
-        return logits, cache
+        return _whole(logits), cache
 
     return prefill
 
@@ -93,22 +97,24 @@ def make_serve_step(cfg: ModelConfig, run: RunConfig, mesh=None,
 
     ``tokens`` (B, 1) is the newest token, ``cache_pos`` (an int) its
     position.  ``greedy=False`` with a ``torch.Generator`` samples from
-    the softmax of the logits instead of taking the argmax.  Under a mesh
-    it raises: not ported yet.
+    the softmax of the logits instead of taking the argmax.  With
+    ``mesh`` and ``rules`` (as :func:`make_prefill_cache_step`'s) the step
+    writes each rank's block of the cache and every rank gets the whole
+    logits and the same next tokens.
     """
-    _no_mesh(mesh, "decode")
 
     @torch.inference_mode()
     def serve_step(model: Transformer, cache, tokens: torch.Tensor,
                    cache_pos: int,
                    generator: Optional[torch.Generator] = None):
         _checked(model, cfg, run)
+        check_placed(model, mesh, rules)
         B = tokens.shape[0]
         positions = torch.full((B, 1), cache_pos, dtype=torch.int32,
                                device=tokens.device)
         logits, cache, _ = model(tokens, positions, cache=cache,
                                  cache_pos=cache_pos)
-        logits = logits[:, -1]
+        logits = _whole(logits[:, -1])
         if greedy or generator is None:
             nxt = logits.argmax(-1)
         else:

@@ -249,8 +249,6 @@ def from_whole(x, mesh, placements, device=None, dtype=None):
     (default: the mesh's device type) in ``dtype`` (default: ``x``'s), no
     collective.  The result never
     shares ``x``'s storage."""
-    from torch.distributed.tensor import DTensor
-
     part = local_part(x, mesh, placements)
     if not isinstance(part, torch.Tensor):
         import numpy as np
@@ -258,11 +256,147 @@ def from_whole(x, mesh, placements, device=None, dtype=None):
         part = torch.from_numpy(np.array(part))
     local = part.to(device=device or mesh.device_type, dtype=dtype,
                     copy=True, memory_format=torch.contiguous_format)
-    shape = torch.Size(x.shape)
+    return _placed_block(local, tuple(x.shape), mesh, placements)
+
+
+def _placed_block(local, shape: tuple, mesh, placements):
+    """The DTensor of global ``shape`` (contiguous) whose block on this
+    rank is ``local``."""
+    from torch.distributed.tensor import DTensor
+
+    shape = torch.Size(shape)
     return DTensor.from_local(local, mesh, placements, run_check=False,
                               shape=shape,
                               stride=torch.empty(shape, device="meta")
                               .stride())
+
+
+def model_shards(mesh, n: int, what: str) -> int:
+    """The model axis's size, checked to split ``n`` (heads, say) evenly:
+    a rank then holds whole ones.  JAX pads an uneven split (GSPMD); a
+    ``local_map`` cannot, so this raises naming ``what``."""
+    model = axis_sizes(mesh).get("model", 1)
+    if n % model:
+        raise ValueError(f"{what}: {n} do not split evenly over a model "
+                         f"axis of {model}")
+    return model
+
+
+def _contiguous(grad: torch.Tensor) -> torch.Tensor:
+    """A local gradient leaving ``local_map`` made contiguous: einsums
+    return permuted gradients, and the DTensor ``view`` of a projection's
+    backward cannot take one whose strides swap two dims of equal size."""
+    return grad.contiguous()
+
+
+def run_local(fn, shard, ins: tuple, outs, *args,
+              split: tuple = ("batch", "model")):
+    """``fn(*args)`` on each rank's own blocks: without a mesh (``shard``
+    None) ``fn`` itself on the plain tensors; under ``shard=(mesh,
+    rules)`` through ``local_map``, each tensor argument redistributed to
+    the placements of its logical axes in ``ins`` (a replicated tensor to
+    a ``Shard`` is a local slice, no collective) and each output a DTensor
+    placed by its logical axes in ``outs`` (one tuple for one output, a
+    list of them for a tuple of outputs; a tuple led by ``"partial"``:
+    placed by the rest of it, but a partial sum over each axis of
+    ``split`` that the rest leaves whole).
+
+    ``split`` names what the work is divided over: ``"model"`` (each rank
+    its own heads, experts or ffn slice) and ``"batch"`` (the batch axes,
+    when the rules shard the batch: each rank its own rows).  An argument
+    whole over such an axis is read by every rank for its own part, so
+    its local gradient is a partial sum there (``Partial``), reduced when
+    it leaves the map.  A local gradient leaving the map is made
+    contiguous (:func:`_contiguous`).  The per-chunk loops of a scan then
+    run on plain tensors: each DTensor op costs host dispatch time."""
+    if shard is None:
+        return fn(*args)
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, rules = shard
+    axes = set()
+    for what in split:
+        entry = rules.table.get(what, what)
+        axes.update((entry,) if isinstance(entry, str) else entry or ())
+    divided = [n in axes and size > 1
+               for n, size in zip(mesh.mesh_dim_names, mesh.shape)]
+
+    def partial(pls):  # whole over a divided axis -> a partial sum there
+        return [Partial() if cut and isinstance(p, Replicate) else p
+                for cut, p in zip(divided, pls)]
+
+    def place(logical):
+        if logical is None:
+            return None
+        if logical[:1] == ("partial",):
+            return partial(placements(mesh, rules, logical[1:]))
+        return placements(mesh, rules, logical)
+
+    def grad_place(logical):
+        return None if logical is None else partial(place(logical))
+
+    def local(*xs):
+        for t in xs:
+            if isinstance(t, torch.Tensor) and t.requires_grad:
+                t.register_hook(_contiguous)
+        return fn(*xs)
+
+    out_pl = (tuple(place(o) for o in outs) if isinstance(outs, list)
+              else place(outs))
+    return local_map(local, out_placements=out_pl,
+                     in_placements=tuple(place(i) for i in ins),
+                     in_grad_placements=tuple(grad_place(i) for i in ins),
+                     device_mesh=mesh, redistribute_inputs=True)(*args)
+
+
+def full_placed(shape: tuple, fill, mesh, placements, *, dtype,
+                device=None):
+    """A ``shape`` tensor of ``fill`` as a DTensor on ``mesh`` placed by
+    ``placements``: each rank makes only its own block (:func:`local_box`),
+    no collective."""
+    box = local_box(tuple(shape), mesh, placements)
+    local = torch.full(tuple(n for _, n in box), fill, dtype=dtype,
+                       device=device or mesh.device_type)
+    return _placed_block(local, tuple(shape), mesh, placements)
+
+
+def write_into(leaf, value, dim: int = 0, start: int = 0):
+    """``leaf[..., start:start + n, ...] = value`` along ``dim`` (n =
+    ``value.shape[dim]``), in place: the cache write.  On a DTensor
+    ``leaf`` (a cache placed by its logical axes) ``value`` is placed as
+    the leaf but whole along ``dim`` (a collective only where it differs:
+    a partial sum reduced, heads gathered where the leaf replicates
+    them), and each rank writes the part of ``[start, start + n)`` that
+    falls in its own block of ``dim`` (:func:`local_box`): a write into a
+    cache whose sequence is split over ranks lands in the rank, or the
+    ranks, holding those slots.  DTensor has no sliced assignment on a
+    sharded dim.  A write over the whole of ``dim`` (a recurrent state's
+    batch) takes ``value`` as the leaf is placed, so each rank keeps its
+    own rows and nothing is gathered over the axes that split them."""
+    n = value.shape[dim]
+    if not is_dtensor(leaf):
+        leaf.narrow(dim, start, n).copy_(value)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = leaf.device_mesh
+    whole_dim = start == 0 and n == leaf.shape[dim]
+    want = (list(leaf.placements) if whole_dim else
+            [Replicate() if isinstance(p, Shard) and p.dim == dim else p
+             for p in leaf.placements])
+    if not is_dtensor(value):
+        value = replicated_like(value, leaf)
+    if list(value.placements) != want:
+        value = value.redistribute(mesh, want)
+    if whole_dim:
+        leaf.to_local().copy_(value.to_local())
+        return
+    off, size = local_box(tuple(leaf.shape), mesh, leaf.placements)[dim]
+    lo, hi = max(start, off), min(start + n, off + size)
+    if lo < hi:
+        leaf.to_local().narrow(dim, lo - off, hi - lo).copy_(
+            value.to_local().narrow(dim, lo - start, hi - lo))
 
 
 def check_placed(model, mesh, rules):

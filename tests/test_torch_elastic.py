@@ -19,6 +19,8 @@
   whole tensors equal the files exactly; ``restore_train_state`` from
   them (each parameter's block straight from the key's local block)
   gives the parameters and moments that the whole host trees give.
+* ``launch/train.py --model-parallel 2`` takes every family: granite,
+  deepseek-v2, zamba2 and rwkv6 train two steps on ``(1, 2)``.
 * The mesh's check that every rank hashes strings alike: a value equal
   on both ranks passes, the rank's own number does not.
 * ``init_module`` (drawn a layer's slice at a time, each rank keeping its
@@ -41,11 +43,15 @@ from repro_torch.sharding.rules import make_rules, spec_placements
 from repro_torch.train import CheckpointManager
 
 LR_WARMUP = 2  # the launcher's warmup at --steps 3: max(2, 3 // 10)
+#: the families that run under a mesh since MoE, MLA and the recurrent
+#: scans were sharded: two launcher steps each on (1, 2)
+FAMILIES = ("granite-moe-3b-a800m", "deepseek-v2-236b", "zamba2-1.2b",
+            "rwkv6-3b")
 TRAIN = ["--smoke", "--device", "cpu", "--seq", "16", "--batch", "4",
          "--ckpt-every", "1"]
 
 
-def _launcher(ckpt, steps, mp):
+def _launcher(ckpt, steps, mp, arch="qwen3-4b"):
     """The launcher with f32 compute (its bf16 default rounds otherwise on
     each mesh, past the f32 standard)."""
     import functools
@@ -55,8 +61,8 @@ def _launcher(ckpt, steps, mp):
 
     launch.RunConfig = functools.partial(RunConfig, compute_dtype="float32")
     try:
-        launch.main([*TRAIN, "--ckpt-dir", ckpt, "--steps", str(steps),
-                     "--model-parallel", str(mp)])
+        launch.main([*TRAIN, "--arch", arch, "--ckpt-dir", ckpt, "--steps",
+                     str(steps), "--model-parallel", str(mp)])
     finally:
         launch.RunConfig = RunConfig
 
@@ -110,6 +116,12 @@ def _rank_main(rank, world, init_file, tmp):
                 _launcher(ckpt, steps, mp)
             logs[label] = buf.getvalue()
         out["logs"] = logs
+        out["families"] = {}
+        for arch in FAMILIES:  # every family takes --model-parallel 2
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                _launcher(os.path.join(tmp, arch), 2, 2, arch)
+            out["families"][arch] = buf.getvalue()
         out["restored"] = _placed_restores(resumed, {"m21": m21,
                                                      "m12": m12})
         out["init"] = {label: _init_mismatches(mesh) for label, mesh in
@@ -208,6 +220,20 @@ def test_model_parallel_launcher_runs_on_the_mesh(ranks):
         assert "resume from step 2 onto {'data': 2, 'model': 1}" in \
             logs["resume"]
         assert "done" in logs["resume"] and "done" in logs["straight"]
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_model_parallel_launcher_takes_every_family(ranks, arch):
+    """MoE, MLA, the Mamba2 hybrid and RWKV6 train two steps through the
+    launcher on a (1, 2) mesh, with finite losses."""
+    import math
+    import re
+
+    for r in ranks[-1]:
+        log = r["families"][arch]
+        assert "mesh={'data': 1, 'model': 2}" in log and "done" in log
+        losses = [float(x) for x in re.findall(r"loss=(\S+)", log)]
+        assert losses and all(math.isfinite(x) for x in losses)
 
 
 def _restore(tmp, d, step):

@@ -6,10 +6,12 @@ and ``tests/test_torch_optimizer.py``)."""
 import datetime
 import os
 import pickle
+import time
 
 import numpy as np
 
-TIMEOUT_S = 120
+TIMEOUT_S = 120  # the process group's bound on one collective
+SPAWN_TIMEOUT_S = 600  # the bound on a whole spawn
 #: label -> ((data, model) mesh shape, RunConfig overrides)
 MESHES = {"m12": ((1, 2), {}), "m21": ((2, 1), {}),
           "m12_asm": ((1, 2), {"act_shard_model": True}),
@@ -32,10 +34,13 @@ def mesh_of(shape):
     return init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
 
 
-def spawn(fn, world, tmp, inputs) -> list:
+def spawn(fn, world, tmp, inputs, timeout=SPAWN_TIMEOUT_S) -> list:
     """Run ``fn(rank, world, init_file, tmp)`` on ``world`` ranks after
     pickling ``inputs`` to ``tmp/inputs.pkl``; returns each rank's
-    pickled ``tmp/rank{r}.pkl``."""
+    pickled ``tmp/rank{r}.pkl``.  A collective that waits past
+    ``TIMEOUT_S`` raises in its rank (the group's timeout), and ranks
+    still running after ``timeout`` seconds are terminated and the spawn
+    raises, so a deadlock fails the test instead of hanging it."""
     import torch.multiprocessing as mp
 
     os.makedirs(tmp, exist_ok=True)
@@ -46,8 +51,15 @@ def spawn(fn, world, tmp, inputs) -> list:
     seed = os.environ.get("PYTHONHASHSEED")
     os.environ["PYTHONHASHSEED"] = "0"
     try:
-        mp.spawn(fn, args=(world, os.path.join(tmp, "pg"), tmp),
-                 nprocs=world, join=True)
+        ctx = mp.spawn(fn, args=(world, os.path.join(tmp, "pg"), tmp),
+                       nprocs=world, join=False)
+        deadline = time.monotonic() + timeout
+        while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise TimeoutError(f"{world} ranks still ran after "
+                                   f"{timeout} s")
     finally:
         if seed is None:
             del os.environ["PYTHONHASHSEED"]
@@ -68,6 +80,23 @@ def load_inputs(tmp):
 def save_result(tmp, rank, out):
     with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
+
+
+def spec_slice(a, spec, sizes: dict, coord: dict):
+    """The block of the whole array ``a`` that a JAX ``spec`` gives the
+    rank at mesh coordinate ``coord`` (``{axis: index}``) of a mesh of
+    ``sizes``: each dim split over its axes, the first outermost, in
+    chunks of ``ceil(n / shards)``, as GSPMD and a DTensor ``Shard``
+    split it."""
+    for dim, entry in enumerate(spec):
+        axes = (entry,) if isinstance(entry, str) else entry or ()
+        n_split, pos = 1, 0
+        for ax in axes:
+            n_split, pos = n_split * sizes[ax], pos * sizes[ax] + coord[ax]
+        size = -(-a.shape[dim] // n_split)
+        a = np.take(a, np.arange(pos * size, min(a.shape[dim],
+                                                 (pos + 1) * size)), axis=dim)
+    return a
 
 
 def scaled(got, want) -> float:
