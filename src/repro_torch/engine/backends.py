@@ -44,7 +44,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..core import balance
+from ..core import balance, spans
 from ..core.census import (canonical_dyads, dyad_buckets,
                            enumerate_dyads_device, host_bucket_schedule,
                            sort_dyads_by_bucket)
@@ -181,11 +181,13 @@ def _run_full(plan, g: CSRGraph, arrays, du, dv, tasks, acc) -> None:
 
 def search_pass(plan, g: CSRGraph, acc: torch.Tensor) -> None:
     """Add ``g``'s full search-backend bins into ``acc`` (graph has dyads)."""
-    arrays = plan.padded_arrays(g)
-    du, dv = enumerate_dyads_device(arrays.nbr_ptr, arrays.nbr_idx, g.m_nbr,
-                                    out_size=plan.dyad_pad)
-    tasks = _memo_tasks(plan, g, ("search", plan.chunk), lambda: _search_tasks(
-        plan, g, *canonical_dyads(g), plan.chunk))
+    with spans.span(spans.STREAM):
+        arrays = plan.padded_arrays(g)
+        du, dv = enumerate_dyads_device(arrays.nbr_ptr, arrays.nbr_idx,
+                                        g.m_nbr, out_size=plan.dyad_pad)
+        tasks = _memo_tasks(plan, g, ("search", plan.chunk),
+                            lambda: _search_tasks(plan, g, *canonical_dyads(g),
+                                                  plan.chunk))
     _run_full(plan, g, arrays, du, dv, tasks, acc)
 
 
@@ -245,8 +247,16 @@ def make_tiles_chunk_fn(layout):
     rest = (layout.batch_kernel(skip=(CENSUS,))
             if layout.has_batch(skip=(CENSUS,)) else None)
 
+    def fold_census(partials, part):
+        census = partials.sum(0, dtype=torch.int64)
+        if census_only:
+            return census
+        part[census_sl] += census
+        return part
+
     def tiles_chunk(arrays, n, su, sv, task, *, chunk: int, block: int):
         u, v, valid = chunk_dyads(su, sv, task, chunk)
+        part = None
         if rest is not None:
             if valid is None:
                 ru, rv = u, v
@@ -258,13 +268,13 @@ def make_tiles_chunk_fn(layout):
         elif not census_only:
             part = torch.zeros(layout.total_bins, dtype=torch.int64,
                                device=u.device)
-        if census_sl is not None:
-            census = census_csr(u, v, n, arrays, k=task.key,
-                                block=block).sum(0, dtype=torch.int64)
-            if census_only:
-                return census
-            part[census_sl] += census
-        return part
+        if census_sl is None:
+            return part
+        partials = census_csr(u, v, n, arrays, k=task.key, block=block)
+        if not spans.enabled():
+            return fold_census(partials, part)
+        with spans.recording(spans.REDUCE):
+            return fold_census(partials, part)
 
     return tiles_chunk
 
@@ -328,6 +338,11 @@ def tiles_stream(plan, g: CSRGraph) -> TilesStream:
     """Build the tiles backend's device stream for ``g`` (graph has
     dyads).  A plan without the census builds no arc flags and sorts
     nothing: it streams the enumerated dyads in the schedule's spans."""
+    with spans.span(spans.STREAM):
+        return _tiles_stream(plan, g)
+
+
+def _tiles_stream(plan, g: CSRGraph) -> TilesStream:
     block, chunk, ks = tiles_geometry(plan)
     census = CENSUS in plan.layout.slices
     arrays = plan.padded_arrays(g, with_flags=census)
@@ -402,18 +417,23 @@ def subset_pass(plan, g: CSRGraph, u: np.ndarray, v: np.ndarray,
     census sorted on the host by (bucket, need), as the full pass sorts
     on the device, so every task's ``K`` is its bucket's width; the
     sorted list is uploaded once."""
-    if arrays is None:
-        arrays = plan.padded_arrays(g, with_flags=needs_flags(plan))
+    fold = arrays is None
+    with spans.span(spans.STREAM):
+        if fold:
+            arrays = plan.padded_arrays(g, with_flags=needs_flags(plan))
+        if len(u):
+            u, v, tasks = subset_schedule(plan, g, u, v)
+            du, dv = _upload_dyads(plan, u, v)
+    if fold:
         _fold_once(plan, acc, arrays, g.n)
-    if not len(u):
-        return
-    _dispatch(plan, g, arrays, *subset_schedule(plan, g, u, v), acc)
+    if len(u):
+        _dispatch(plan, g, arrays, du, dv, tasks, acc)
 
 
-def _dispatch(plan, g: CSRGraph, arrays, u, v, tasks, acc) -> None:
-    """Upload the dispatch-ordered dyads ``(u, v)`` once and run ``tasks``
-    over them and ``arrays`` into ``acc``."""
-    plan.executor.run(tasks, place=_placer(arrays, *_upload_dyads(plan, u, v)),
+def _dispatch(plan, g: CSRGraph, arrays, du, dv, tasks, acc) -> None:
+    """Run ``tasks`` over the uploaded dispatch-ordered dyads ``(du, dv)``
+    and ``arrays`` into ``acc``."""
+    plan.executor.run(tasks, place=_placer(arrays, du, dv),
                       step=make_step(plan, g.n), init=acc)
 
 
@@ -449,12 +469,15 @@ def distributed_pass(plan, g: CSRGraph, acc: torch.Tensor) -> None:
     """Add this rank's share of ``g``'s full pass (:func:`rank_share`, and
     on rank 0 the once contributions) into ``acc``; records the packing's
     load summary in ``plan.last_task_stats``."""
-    u, v, tasks, stats = rank_share(plan, g)
+    with spans.span(spans.STREAM):
+        u, v, tasks, stats = rank_share(plan, g)
+        arrays = plan.padded_arrays(g, with_flags=needs_flags(plan))
+        if tasks:
+            du, dv = _upload_dyads(plan, u, v)
     plan.last_task_stats = stats
-    arrays = plan.padded_arrays(g, with_flags=needs_flags(plan))
     _fold_once(plan, acc, arrays, g.n)
     if tasks:
-        _dispatch(plan, g, arrays, u, v, tasks, acc)
+        _dispatch(plan, g, arrays, du, dv, tasks, acc)
 
 
 def distributed_subset_pass(plan, g: CSRGraph, u: np.ndarray, v: np.ndarray,

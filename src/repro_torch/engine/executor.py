@@ -24,7 +24,10 @@ each dynamic worker adds into its own accumulator on its device, and the
 pool merges them into ``init`` on the primary device after every worker
 joined (exact integer addition, for any task assignment).
 :func:`_acc_fetch` is the run's one device→host copy, counted in
-``stats["host_syncs"]``.
+``stats["host_syncs"]``.  While a profiler records, a pass's chunk loop
+is the ``census.dispatch`` span and each chunk ``census.chunk``
+(:mod:`repro_torch.core.spans`); the in-order loop reads that once a
+pass and otherwise runs without a span.
 
 The partitioned engine (:mod:`repro_torch.engine.partition`) drives two
 more entry points with contexts it stages itself: :meth:`Executor.
@@ -72,6 +75,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..core import spans
 from ..kernels._build import KernelBuildError
 from .faults import DeviceLostError, InjectedFault, resolve_faults
 
@@ -155,19 +159,26 @@ def _acc_fetch(plan, acc: torch.Tensor) -> np.ndarray:
     (counted once): ``acc`` is ``(total_bins,)``, or ``(B, total_bins)``
     for a batch of B graphs."""
     plan.stats["host_syncs"] += 1
-    return acc.cpu().numpy().astype(np.int64)
+    with spans.span(spans.FETCH):
+        return acc.cpu().numpy().astype(np.int64)
 
 
 def _throttle(window: collections.deque, device: torch.device,
-              depth: int) -> None:
+              depth: int, traced: bool = False) -> None:
     """Allow at most ``depth`` chunks in flight on ``device`` (CPU ops run
-    synchronously and need no window)."""
+    synchronously and need no window); a wait on a full window is the
+    ``census.wait`` span when ``traced``."""
     if device.type != "cuda":
         return
     event = torch.cuda.Event()
     event.record(torch.cuda.current_stream(device))
     window.append(event)
-    if len(window) > depth:
+    if len(window) <= depth:
+        return
+    if traced:
+        with spans.recording(spans.WAIT):
+            window.popleft().synchronize()
+    else:
         window.popleft().synchronize()
 
 
@@ -300,7 +311,10 @@ class Executor:
     def run(self, tasks, *, place, step, init: torch.Tensor) -> torch.Tensor:
         """Run every task and add their contributions into ``init`` (which
         already holds the run's once contribution); returns ``init``."""
-        tasks = list(tasks)
+        with spans.span(spans.DISPATCH):
+            return self._run(list(tasks), place, step, init)
+
+    def _run(self, tasks, place, step, init) -> torch.Tensor:
         if len(self.devices) > 1:
             try:
                 self._run_workqueue(tasks, place, step, init)
@@ -346,6 +360,8 @@ class Executor:
     # -- pinned: in-order dispatch of a context staged by the caller --------
 
     def _run_pinned_once(self, tasks, ctx, step, acc) -> None:
+        if spans.enabled():
+            return self._run_pinned_traced(tasks, ctx, step, acc)
         dev = self.devices[0]
         window: collections.deque = collections.deque()
         with _on(dev):
@@ -357,6 +373,21 @@ class Executor:
                 self._bump(0, 1)
                 _throttle(window, dev, self.depth)
 
+    def _run_pinned_traced(self, tasks, ctx, step, acc) -> None:
+        """:meth:`_run_pinned_once` with each chunk's spans, while a
+        profiler records."""
+        dev = self.devices[0]
+        window: collections.deque = collections.deque()
+        with _on(dev):
+            for ordinal, t in enumerate(tasks):
+                with spans.recording(spans.CHUNK):
+                    part = self._attempt(ctx, t, step, 0, ordinal)
+                    with spans.recording(spans.FOLD):
+                        acc.add_(part)
+                    self.stats["chunks"] += 1
+                    self._bump(0, 1)
+                    _throttle(window, dev, self.depth, traced=True)
+
     def run_pinned(self, tasks, *, ctx, step, init: torch.Tensor,
                    rebuild=None) -> torch.Tensor:
         """Run ``tasks`` in order on the primary slot over ``ctx``, a
@@ -367,7 +398,10 @@ class Executor:
         device-loss injection suppressed (a fresh device), over
         ``rebuild()`` when given, from ``init`` untouched: the first try
         folded into a scratch accumulator."""
-        tasks = list(tasks)
+        with spans.span(spans.DISPATCH):
+            return self._run_pinned(list(tasks), ctx, step, init, rebuild)
+
+    def _run_pinned(self, tasks, ctx, step, init, rebuild) -> torch.Tensor:
         if not (self.schedule_fallback and self.faults is not None
                 and self.faults.device_loss):
             self._run_pinned_once(tasks, ctx, step, init)
@@ -411,6 +445,11 @@ class Executor:
         in order on the primary slot into the untouched ``init``.  Per-
         shard wall-clock intervals land in ``pstats["shard_times"]``."""
         shard_tasks = [(s, list(ts)) for s, ts in shard_tasks]
+        with spans.span(spans.DISPATCH):
+            return self._run_sharded(shard_tasks, place, step, init, pstats)
+
+    def _run_sharded(self, shard_tasks, place, step, init,
+                     pstats) -> torch.Tensor:
         try:
             self._run_sharded_queue(shard_tasks, place, step, init, pstats)
         except PoolExhaustedError:
@@ -436,8 +475,8 @@ class Executor:
             for s, ts in shard_tasks:
                 ctx = place(s, self.devices[0])
                 start = time.perf_counter() - t_base
-                self.run_pinned(ts, ctx=ctx, step=step, init=init,
-                                rebuild=lambda s=s: place(s, self.devices[0]))
+                self._run_pinned(ts, ctx, step, init,
+                                 lambda s=s: place(s, self.devices[0]))
                 times[s] = dict(start=start, end=time.perf_counter() - t_base,
                                 tasks=len(ts), device=0)
             return
@@ -552,23 +591,24 @@ class Executor:
                                 break
                             with cond:
                                 ctxs[s] = (i, ctx)
-                        try:
-                            part = self._dispatch(ctx, t, step, i, ordinal,
-                                                  attempt)
-                        except Exception as e:  # noqa: BLE001
+                        with spans.span(spans.CHUNK):
+                            try:
+                                part = self._dispatch(ctx, t, step, i,
+                                                      ordinal, attempt)
+                            except Exception as e:  # noqa: BLE001
+                                ordinal += 1
+                                with cond:
+                                    on_failure(i, s, t, attempt, e)
+                                continue
                             ordinal += 1
+                            acc.add_(part)
+                            mine.add(s)
+                            counts[i] += 1
                             with cond:
-                                on_failure(i, s, t, attempt, e)
-                            continue
-                        ordinal += 1
-                        acc.add_(part)
-                        mine.add(s)
-                        counts[i] += 1
-                        with cond:
-                            pending[0] -= 1
-                            if pending[0] <= 0:
-                                cond.notify_all()
-                        _throttle(window, dev, self.depth)
+                                pending[0] -= 1
+                                if pending[0] <= 0:
+                                    cond.notify_all()
+                            _throttle(window, dev, self.depth)
             except BaseException as e:  # noqa: BLE001 — see _run_workqueue
                 with cond:
                     fatal.append(e)
@@ -674,18 +714,19 @@ class Executor:
                             if not queue or fatal or i not in alive:
                                 break
                             t, attempt = queue.popleft()
-                        try:
-                            part = self._dispatch(ctx, t, step, i, ordinal,
-                                                  attempt)
-                        except Exception as e:  # noqa: BLE001
+                        with spans.span(spans.CHUNK):
+                            try:
+                                part = self._dispatch(ctx, t, step, i,
+                                                      ordinal, attempt)
+                            except Exception as e:  # noqa: BLE001
+                                ordinal += 1
+                                with qlock:
+                                    on_failure(i, t, attempt, e)
+                                continue
                             ordinal += 1
-                            with qlock:
-                                on_failure(i, t, attempt, e)
-                            continue
-                        ordinal += 1
-                        acc.add_(part)
-                        counts[i] += 1
-                        _throttle(window, dev, self.depth)
+                            acc.add_(part)
+                            counts[i] += 1
+                            _throttle(window, dev, self.depth)
             except BaseException as e:  # noqa: BLE001 — any escape must
                 # reach the caller: a silently dead worker would drop the
                 # chunks it folded and the merged run would under-count

@@ -28,6 +28,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..core import spans
 from ..core.census import (CensusResult, brute_force_census,
                            make_census_batch_fn, make_member_fn)
 from ..core.graph import CSRGraph, dense_adjacency
@@ -483,7 +484,8 @@ class OpLayout:
     def finalize(self, raw, g: CSRGraph) -> dict:
         """Per-op results from the fused raw bins: ``{op.name: result}`` in
         the plan's op order."""
-        raw = np.asarray(raw, dtype=np.int64)
-        return {op.name:
-                op.finalize(raw[self.slices[op.kernel_key or op.name]], g)
-                for op in self.ops}
+        with spans.span(spans.FINALIZE):
+            raw = np.asarray(raw, dtype=np.int64)
+            return {op.name:
+                    op.finalize(raw[self.slices[op.kernel_key or op.name]], g)
+                    for op in self.ops}

@@ -62,6 +62,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core import spans
 from ..core.census import CensusResult
 from ..core.distributed import default_mesh, make_census_fn_for_mesh
 from ..core.graph import CSRGraph, GraphArrays, next_pow2, tensor_arrays
@@ -351,10 +352,11 @@ class Plan:
         finalize), in original vertex ids; one device→host copy.  This is
         the state a delta stream carries between mutations
         (:meth:`apply_delta`)."""
-        check_poisoned(g)
-        self._check(g)
-        self.stats["runs"] += 1
-        return self._execute_raw(g)
+        with spans.span(spans.RUN):
+            check_poisoned(g)
+            self._check(g)
+            self.stats["runs"] += 1
+            return self._execute_raw(g)
 
     def run_batch(self, graphs) -> "list[dict]":
         """Run the fused pass on B same-bucket graphs as one batch.
@@ -373,6 +375,10 @@ class Plan:
         graphs = list(graphs)
         if not graphs:
             return []
+        with spans.span(spans.RUN):
+            return self._run_batch(graphs)
+
+    def _run_batch(self, graphs) -> "list[dict]":
         for g in graphs:
             check_poisoned(g)
             self._check(g)
@@ -405,9 +411,10 @@ class Plan:
         fraction exceeds ``config.delta_threshold``, or an op sets
         ``delta_local=False``.  Raises :class:`PlanShapeError` if the
         mutated graph outgrows the plan's buckets."""
-        self._check(g)
-        self.stats["runs"] += 1
-        return run_delta(self, g, delta, raw)
+        with spans.span(spans.RUN):
+            self._check(g)
+            self.stats["runs"] += 1
+            return run_delta(self, g, delta, raw)
 
     def census_view(self) -> "CensusPlan":
         """The census-only view of this plan."""

@@ -19,6 +19,7 @@ import threading
 
 import torch
 
+from ..core import spans
 from . import _build
 from .ref import census_csr_ref, census_tiles_ref
 
@@ -167,14 +168,30 @@ def census_csr(u, v, n: int, arrays, *, k: int,
     backend passes its bucket width): up to 512 the kernel maps one warp
     to a dyad, above it one CTA to a group of dyads.  Returns the
     (D / block, 16) int32 partials :func:`census_tiles` gives for the same
-    dyads.  ``census_csr.launches`` counts CUDA kernel launches.
+    dyads.  ``census_csr.launches`` counts CUDA kernel launches.  The
+    checks and the launch are the ``census.check`` and ``census.launch``
+    spans while a profiler records (:mod:`repro_torch.core.spans`).
     """
-    _check_csr(u, v, n, arrays, block)
+    traced = spans.enabled()
+    if traced:
+        with spans.recording(spans.CHECK):
+            _check_csr(u, v, n, arrays, block)
+    else:
+        _check_csr(u, v, n, arrays, block)
     dev = u.device
     if dev.type == "cpu":
         return census_csr_ref(u, v, n, arrays, block=block)
     if dev.type != "cuda":
         raise ValueError(f"census_csr runs on cuda or cpu, not {dev}")
+    if traced:
+        with spans.recording(spans.LAUNCH):
+            return _launch_csr(u, v, n, arrays, k, block)
+    return _launch_csr(u, v, n, arrays, k, block)
+
+
+def _launch_csr(u, v, n: int, arrays, k: int, block: int) -> torch.Tensor:
+    """:func:`census_csr`'s output and CUDA launch (inputs checked)."""
+    dev = u.device
     D = u.shape[0]
     out = torch.empty((D // block, 16), dtype=torch.int32, device=dev)
     if D == 0:

@@ -17,6 +17,8 @@ Design properties:
     ``max_batch`` or when ``max_wait_requests`` newer requests have been
     submitted since the group's oldest member (bounded staleness without
     wall-clock timers, so behaviour is exactly reproducible in tests).
+    The host clock is read only for :meth:`CensusService.stats`' queue
+    wait; no decision reads it.
   * **Out-of-order completion, stable ids** — ``submit`` returns a
     monotonically increasing request id; completions surface in batch
     flush order, each tagged with its id, bucket and ops.
@@ -50,10 +52,15 @@ reads fresh results from the session's raw bins.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Iterable, List, NamedTuple, Optional, Tuple
 
+import numpy as np
+
+from ..core import spans
 from ..core.delta import GraphDelta, apply_delta_csr
 from ..core.graph import CSRGraph
 from ..engine.config import EngineConfig
@@ -66,6 +73,15 @@ __all__ = ["AdmissionError", "CensusCompletion", "CensusService",
 _DEFAULT_OPS = ("triad_census",)
 
 REJECT_POLICIES = ("reject", "flush_oldest")
+
+#: why a group flushed: it reached ``max_batch``, it went stale under
+#: ``max_wait_requests``, admission control flushed it (``flush_oldest``),
+#: or :meth:`CensusService.flush` did
+FLUSH_REASONS = ("full", "stale", "admission", "explicit")
+#: requests whose queue wait :meth:`CensusService.stats` summarizes
+QUEUE_WAIT_WINDOW = 4096
+#: the clock of the queue-wait statistics (seconds)
+clock = time.perf_counter
 
 
 class AdmissionError(RuntimeError):
@@ -203,12 +219,14 @@ class CensusCompletion(NamedTuple):
 
 
 class _Request(NamedTuple):
-    """One pending entry: stable id, the graph, and the flush-round
-    number after which the request expires (None = no deadline)."""
+    """One pending entry: stable id, the graph, the flush-round number
+    after which the request expires (None = no deadline), and the
+    :data:`clock` reading at its submit."""
 
     rid: int
     graph: CSRGraph
     expiry: Optional[int] = None
+    t_submit: float = 0.0
 
 
 @dataclasses.dataclass
@@ -274,6 +292,9 @@ class CensusService:
                             schedule_fallbacks=0, rejections=0, poisoned=0,
                             expired=0, batch_failures=0, group_failures=0,
                             mutate_failures=0)
+        self._flushes = dict.fromkeys(FLUSH_REASONS, 0)
+        self._queue_wait: collections.deque = collections.deque(
+            maxlen=QUEUE_WAIT_WINDOW)
 
     # -- request path --------------------------------------------------------
 
@@ -293,7 +314,7 @@ class CensusService:
             # flush_oldest: free capacity by executing the group holding
             # the oldest pending request, then admit.
             oldest = min(self._first_seq, key=self._first_seq.get)
-            self._flush_group(oldest)
+            self._flush_group(oldest, "admission")
 
     def submit(self, graph: CSRGraph, ops=None, *,
                deadline_rounds: Optional[int] = None) -> int:
@@ -331,21 +352,21 @@ class CensusService:
             self._first_seq[key] = rid
         expiry = (None if deadline_rounds is None
                   else self._rounds + deadline_rounds)
-        group.append(_Request(rid, graph, expiry))
+        group.append(_Request(rid, graph, expiry, clock()))
         st = self._bucket_stats.setdefault(
             meta, dict(requests=0, batches=0, batched_graphs=0,
                        host_syncs=0, chunks=0, by_ops={}))
         st["requests"] += 1
         st["by_ops"][ops_t] = st["by_ops"].get(ops_t, 0) + 1
         if len(group) >= self.config.max_batch:
-            self._flush_group(key)
+            self._flush_group(key, "full")
         # staleness: count only OTHER groups' arrivals since a group's
         # oldest member — a hot group's own burst must still be allowed
         # to fill to max_batch.
         for stale in [k for k, s in self._first_seq.items()
                       if (self._seq - s - len(self._pending[k])
                           >= self.config.max_wait_requests)]:
-            self._flush_group(stale)
+            self._flush_group(stale, "stale")
         return rid
 
     def _expire_overdue(self) -> None:
@@ -510,10 +531,7 @@ class CensusService:
             plans = {key: compile(key[0], key[1], self.config.census,
                                   mesh=self.mesh)
                      for key in keys}
-            jobs = []
-            for key in keys:
-                self._first_seq.pop(key)
-                jobs.append((key, self._pending.pop(key)))
+            jobs = [(key, self._take(key, "explicit")) for key in keys]
             # more group threads than pool slots would only oversubscribe
             # the pool (each group's executor starts one worker a slot)
             width = max(p.executor.n_devices for p in plans.values())
@@ -525,7 +543,7 @@ class CensusService:
                 self._record_outcome(key, group, out)
         else:
             for key in keys:
-                self._flush_group(key)
+                self._flush_group(key, "explicit")
         return self.poll()
 
     def run_fleet(self, graphs: Iterable[CSRGraph], ops=None) -> List[Any]:
@@ -558,18 +576,29 @@ class CensusService:
 
     # -- execution -----------------------------------------------------------
 
-    def _flush_group(self, key) -> None:
-        meta, ops_t = key
+    def _take(self, key, reason: str) -> list:
+        """Pop ``key``'s pending group to run it, counting the flush under
+        ``reason`` (one of :data:`FLUSH_REASONS`) and each request's wait
+        since its submit."""
         group = self._pending.pop(key)
         self._first_seq.pop(key)
-        plan = compile(meta, ops_t, self.config.census, mesh=self.mesh)
-        try:
-            out = self._execute_group(plan, group)
-        except BaseException as e:
-            # the group's requests fail explicitly, never silently drop.
-            self._record_outcome(key, group, e)
-            raise
-        self._record_outcome(key, group, out)
+        self._flushes[reason] += 1
+        now = clock()
+        self._queue_wait.extend(1e3 * (now - r.t_submit) for r in group)
+        return group
+
+    def _flush_group(self, key, reason: str) -> None:
+        with spans.span(spans.FLUSH):
+            meta, ops_t = key
+            group = self._take(key, reason)
+            plan = compile(meta, ops_t, self.config.census, mesh=self.mesh)
+            try:
+                out = self._execute_group(plan, group)
+            except BaseException as e:
+                # the group's requests fail explicitly, never silently drop.
+                self._record_outcome(key, group, e)
+                raise
+            self._record_outcome(key, group, out)
 
     def _execute_group(self, plan, group) -> dict:
         """Run one group's batch; returns results + the plan-stat deltas.
@@ -687,7 +716,15 @@ class CensusService:
         retried member-wise), ``poisoned`` (requests completing with
         error payloads), ``group_failures`` (groups that failed as a
         whole) and ``mutate_failures`` (rolled-back session mutations) —
-        all zeros on a healthy service.
+        all zeros on a healthy service.  ``flushes`` counts the groups
+        flushed for each reason of :data:`FLUSH_REASONS`: ``full`` (the
+        group reached ``max_batch``), ``stale`` (the ``max_wait_requests``
+        valve), ``admission`` (``reject_policy="flush_oldest"``) and
+        ``explicit`` (:meth:`flush`).  ``queue_wait_ms`` summarizes, over
+        the last :data:`QUEUE_WAIT_WINDOW` requests flushed, the time from
+        each one's ``submit`` to the start of its group's flush: ``n`` and
+        the ``p50``, ``p95`` (numpy's linear percentiles) and ``max`` in
+        milliseconds, None while ``n`` is 0.
         """
         buckets = {}
         total_batches = total_graphs = 0
@@ -709,9 +746,20 @@ class CensusService:
             devices=dict(self._device_chunks),
             rounds=self._rounds,
             health=dict(self._health),
+            flushes=dict(self._flushes),
+            queue_wait_ms=_summary(self._queue_wait),
             sessions={sid: dict(mutations=s.mutations, deltas=s.deltas,
                                 fulls=s.fulls, recompiles=s.recompiles,
                                 failed=s.failed,
                                 n=s.graph.n, m=s.graph.m, ops=s.ops)
                       for sid, s in self._sessions.items()},
         )
+
+
+def _summary(waits) -> dict:
+    """``n``, ``p50``, ``p95`` and ``max`` of ``waits`` (None while empty)."""
+    if not waits:
+        return dict(n=0, p50=None, p95=None, max=None)
+    w = np.fromiter(waits, dtype=np.float64)
+    p50, p95 = np.percentile(w, [50, 95])
+    return dict(n=len(w), p50=float(p50), p95=float(p95), max=float(w.max()))
