@@ -279,6 +279,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak memory rate
 BF16_FLOP_PER_S = 989e12  # H100 SXM published dense bf16 tensor-core peak
 BIN012_LARGE_N = 134217760  # exact bin 012 of the large-n tile case
 HUB_DEGREE = 70_000  # past the packed range counts' 2**16 - 1
+# dyads per call of census_csr_ref: its intermediates grow with the sum
+# of the dyads' smaller rows, and a whole degree bucket of a Patents
+# shard needed more than the card's 80 GB in one call
+REF_DYADS = 8192
 INT32_LANES_PER_SM = 64  # Hopper: int32 results per SM per clock
 KERNELS = ("census_csr", "census_tiles", "flash_attention")
 T0 = time.perf_counter()
@@ -546,27 +550,38 @@ def csr_chunk_work(torch, arrays, u, v, block):
     return (nbytes, compares, int((du + dv).sum()), int(small.sum()))
 
 
+def plain_partials(torch, u, v, n, arrays, block):
+    """census_csr_ref's (D / block, 16) partials of the dyads ``(u, v)``,
+    computed ``REF_DYADS`` dyads (whole blocks) a call."""
+    from repro_torch.kernels.ref import census_csr_ref
+
+    step = max(block, REF_DYADS // block * block)
+    return torch.cat([census_csr_ref(u[i: i + step], v[i: i + step], n,
+                                     arrays, block=block)
+                      for i in range(0, u.shape[0], step)])
+
+
 def csr_kernel_phase(torch, g, st, tasks, rates, label):
     """The CSR kernel against its plain version on ``tasks`` of the tiles
     stream ``st``, bit-equal; per bucket its CUDA-event time, the plain
     version's, and the bound from each chunk's own bytes and compares."""
-    from repro_torch.engine.backends import chunk_dyads
-    from repro_torch.kernels.ref import census_csr_ref
+    from repro_torch.engine.backends import chunk_dyads, task_lanes
     from repro_torch.kernels.triad_census import census_csr
 
     per_bucket: dict = {}
     for task in tasks:
-        u, v, _ = chunk_dyads(st.su, st.sv, task, st.chunk)
+        width = task_lanes(task, st.chunk, st.block)
+        u, v, _ = chunk_dyads(st.su, st.sv, task, width)
         got = census_csr(u, v, g.n, st.arrays, k=task.key, block=st.block)
-        want = census_csr_ref(u, v, g.n, st.arrays, block=st.block)
+        want = plain_partials(torch, u, v, g.n, st.arrays, st.block)
         torch.cuda.synchronize()
         err = int((got.long() - want.long()).abs().max())
         check(err == 0, f"{label}: census_csr != plain at K={task.key}, "
                         f"dyad {task.start}: max abs err {err}")
         k_ms = event_ms(torch, lambda: census_csr(
             u, v, g.n, st.arrays, k=task.key, block=st.block), reps=3)
-        p_ms = event_ms(torch, lambda: census_csr_ref(
-            u, v, g.n, st.arrays, block=st.block), reps=1)
+        p_ms = event_ms(torch, lambda: plain_partials(
+            torch, u, v, g.n, st.arrays, st.block), reps=1)
         nbytes, compares, lanes, min_sum = csr_chunk_work(
             torch, st.arrays, u, v, st.block)
         byte_ms = nbytes / rates["bytes"] * 1e3
@@ -577,7 +592,7 @@ def csr_kernel_phase(torch, g, st, tasks, rates, label):
             byte_ms=0.0, op_ms=0.0, bound_ms=0.0, max_abs_err=0))
         b["max_abs_err"] = max(b["max_abs_err"], err)
         b["chunks"] += 1
-        b["dyads"] += min(task.end, task.start + st.chunk) - task.start
+        b["dyads"] += min(task.end, task.start + width) - task.start
         b["kernel_ms"] += k_ms
         b["plain_ms"] += p_ms
         b["bytes"] += nbytes
@@ -2869,12 +2884,18 @@ def fused_phase(torch, dev, g):
 
     from repro_torch.engine import EngineConfig, compile, get_op
     from repro_torch.engine import plan as tplan
+    from repro_torch.engine.backends import tiles_stream
     from repro_torch.kernels.triad_census import census_csr
 
     cfg = EngineConfig(backend="tiles", device=dev)
     census = compile(g, ("triad_census",), cfg)
     raw_census = census.run_raw(g)
     census_chunks = census.stats["chunks"] // census.stats["runs"]
+    # the census alone launches once per bucket; the fused plan's other
+    # per-dyad kernels keep it on fixed-size chunks
+    check(census_chunks == len(tiles_stream(census, g).tasks)
+          and census.stats["bucket_passes"] == census.stats["runs"],
+          f"census-only plan: {census_chunks} chunks, {census.stats}")
     census_csr.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2882,7 +2903,9 @@ def fused_phase(torch, dev, g):
     raw_cold = plan.run_raw(g)
     cold_s = time.perf_counter() - t0
     launches = census_csr.launches
-    check(launches == plan.stats["chunks"] == census_chunks
+    check(launches == plan.stats["chunks"]
+          == len(tiles_stream(plan, g).tasks) > census_chunks
+          and plan.stats["bucket_passes"] == 0
           and plan.stats["host_syncs"] == 1,
           f"fused cold run: {launches} launches, {plan.stats}, census "
           f"plan {census_chunks} chunks")
@@ -3345,7 +3368,8 @@ def dynamic_fused_phase(torch, dev, g):
 
 def faults_phase(torch, dev, g, raw_clean):
     """Injected faults on Slashdot, tiles: recoverable chunk failures
-    (static and dynamic), the loss of the only pool device, the tiles
+    (static 8,192-dyad chunks, dynamic, and every bucket-wide task of
+    the default plan failing once), the loss of the only pool device, the tiles
     runtime failure with and without the ``tiles -> search`` rung, and a
     16-request dynamic service.  Every recovered run is bit-equal to the
     clean one with one copy, every counter as the plan injected.  Returns
@@ -3370,11 +3394,16 @@ def faults_phase(torch, dev, g, raw_clean):
 
     launches = {}
     chaos = FaultPlan(seed=16, chunk_failure_rate=0.2, fail_attempts=1)
-    for schedule in ("static", "dynamic"):
-        plan, n = run(chaos, schedule=schedule)
+    # every bucket-wide task fails once: the default plan's retry unit is
+    # a whole bucket, and four tasks rarely draw a 0.2 failure
+    every = FaultPlan(seed=16, chunk_failure_rate=1.0, fail_attempts=1)
+    for schedule, fp, kw in (("static", chaos, dict(chunk_dyads=8192)),
+                             ("dynamic", chaos, dict(schedule="dynamic")),
+                             ("bucket", every, {})):
+        plan, n = run(fp, **kw)
         tasks = (dynamic_tasks(plan, g) if schedule == "dynamic"
                  else tiles_stream(plan, g).tasks)
-        picked = sum(chaos.chunk_fails(t.start, 1) for t in tasks)
+        picked = sum(fp.chunk_fails(t.start, 1) for t in tasks)
         fs = plan.stats["faults"]
         check(picked > 0 and fs["retries"] == fs["chunk_failures"] == picked
               and n == len(tasks) == plan.stats["chunks"]
@@ -3386,7 +3415,7 @@ def faults_phase(torch, dev, g, raw_clean):
               f"{len(tasks)} tasks, {plan.stats}")
         launches[f"chunk_chaos_{schedule}"] = n
         emit("faults", graph="slashdot", case=f"chunk_chaos_{schedule}",
-             fault_plan=dataclasses.asdict(chaos), tasks=len(tasks),
+             fault_plan=dataclasses.asdict(fp), tasks=len(tasks),
              selected_chunks=picked, launches=n, host_syncs_per_run=1,
              bit_identical_to_clean=True, faults=fs,
              fault_events=len(plan.stats["fault_events"]),
@@ -3977,7 +4006,7 @@ def rank_census_phase(torch, dev, mesh, g, ops, rates, label):
     from repro_torch.engine import EngineConfig, compile
     from repro_torch.engine.backends import (TilesStream, _upload_dyads,
                                              chunk_dyads, rank_share,
-                                             tiles_geometry)
+                                             task_lanes, tiles_geometry)
     from repro_torch.kernels.triad_census import census_csr
 
     tiles = compile(g, ops, EngineConfig(backend="tiles", device=dev))
@@ -4007,7 +4036,8 @@ def rank_census_phase(torch, dev, mesh, g, ops, rates, label):
     st = TilesStream(arrays, su, sv, tasks, chunk, block)
     checked = csr_kernel_phase(torch, g, st, bucket_ends(tasks), rates,
                                f"{label}_rank{mesh_rank(mesh)}")
-    inputs = [chunk_dyads(su, sv, t, chunk)[:2] + (t.key,) for t in tasks]
+    inputs = [chunk_dyads(su, sv, t, task_lanes(t, chunk, block))[:2]
+              + (t.key,) for t in tasks]
     row_ms = event_ms(torch, lambda: [census_csr(
         cu, cv, g.n, arrays, k=k, block=block) for cu, cv, k in inputs],
         reps=DIST_REPS)
@@ -4323,7 +4353,8 @@ def run(dev) -> int:
 
     from repro_torch.core import brute_force_census, generators
     from repro_torch.engine import EngineConfig, clear_plan_cache, compile
-    from repro_torch.engine.backends import chunk_tile_inputs, tiles_stream
+    from repro_torch.engine.backends import (chunk_tile_inputs,
+                                             tiles_geometry, tiles_stream)
     from repro_torch.kernels import _build
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.ref import census_csr_ref, census_tiles_ref
@@ -4381,29 +4412,34 @@ def run(dev) -> int:
     plan = compile(g, ("triad_census",), cfg)
     st = tiles_stream(plan, g)
     tile_arrays = plan.padded_arrays(g, with_in_csr=True)
+    # the six-tile kernel chunk by chunk: the (D, K) tiles of the main
+    # path's whole-bucket tasks would take gigabytes
+    tile_st = tiles_stream(compile(g, ("triad_census",), dataclasses.replace(
+        cfg, chunk_dyads=8192)), g)
     per_bucket: dict = {}
     max_err = 0
-    for task in st.tasks:
-        u, v, tiles = chunk_tile_inputs(tile_arrays, st.su, st.sv, task,
-                                        st.chunk)
-        got = census_tiles(u, v, g.n, *tiles, block=st.block)
-        want = census_tiles_ref(*tiles, u, v, g.n, block=st.block)
+    for task in tile_st.tasks:
+        u, v, tiles = chunk_tile_inputs(tile_arrays, tile_st.su, tile_st.sv,
+                                        task, tile_st.chunk)
+        got = census_tiles(u, v, g.n, *tiles, block=tile_st.block)
+        want = census_tiles_ref(*tiles, u, v, g.n, block=tile_st.block)
         torch.cuda.synchronize()
         err = int((got.long() - want.long()).abs().max())
         check(err == 0, f"kernel != plain at K={task.key}, dyad "
                         f"{task.start}: max abs err {err}")
         max_err = max(max_err, err)
         k_ms = event_ms(torch, lambda: census_tiles(
-            u, v, g.n, *tiles, block=st.block), reps=3)
+            u, v, g.n, *tiles, block=tile_st.block), reps=3)
         p_ms = event_ms(torch, lambda: census_tiles_ref(
-            *tiles, u, v, g.n, block=st.block), reps=1)
+            *tiles, u, v, g.n, block=tile_st.block), reps=1)
         prefix = int(sum(int((t != SENTINEL).sum()) for t in tiles))
-        nbytes = 4 * prefix + 8 * st.chunk + 64 * (st.chunk // st.block)
+        nbytes = (4 * prefix + 8 * tile_st.chunk
+                  + 64 * (tile_st.chunk // tile_st.block))
         b = per_bucket.setdefault(task.key, dict(
             K=task.key, chunks=0, dyads=0, kernel_ms=0.0, plain_ms=0.0,
             bytes=0))
         b["chunks"] += 1
-        b["dyads"] += min(task.end, task.start + st.chunk) - task.start
+        b["dyads"] += min(task.end, task.start + tile_st.chunk) - task.start
         b["kernel_ms"] += k_ms
         b["plain_ms"] += p_ms
         b["bytes"] += nbytes
@@ -4489,9 +4525,13 @@ def run(dev) -> int:
     tile_launches = census_tiles.launches
     chunks = plan.stats["chunks"] - chunks0
     peak = torch.cuda.max_memory_allocated()
-    check(launches == chunks == len(st.tasks) > 0 and tile_launches == 0,
+    ks = tiles_geometry(plan)[2]
+    check(launches == chunks == len(st.tasks) > 0 and tile_launches == 0
+          and len(st.tasks) <= len(ks)
+          and plan.stats["bucket_passes"] == 2,
           f"warm run: {launches} CSR launches, {tile_launches} six-tile, "
-          f"{chunks} chunks, {len(st.tasks)} tasks")
+          f"{chunks} chunks, {len(st.tasks)} tasks, {len(ks)} buckets, "
+          f"{plan.stats}")
     check(plan.stats["host_syncs"] == 2, f"warm run: {plan.stats}")
 
     splan = compile(g, ("triad_census",),
@@ -4559,12 +4599,12 @@ def run(dev) -> int:
         source="src/repro_torch/kernels/csrc/census_tiles.cu",
         replaces="src/repro/kernels/triad_census.py:36",
         launches=tile_launches, main_path_launches=tile_launches,
-        checked_launches=len(st.tasks), max_abs_err=max_err,
+        checked_launches=len(tile_st.tasks), max_abs_err=max_err,
         ms=sum(b["kernel_ms"] for b in per_bucket.values()),
         plain_ms=sum(b["plain_ms"] for b in per_bucket.values()),
         bound_ms=sum(b["bound_ms"] for b in per_bucket.values()),
         bound_by="bytes", library_ms=None)
-    del st, plan, splan
+    del st, tile_st, plan, splan
     torch.cuda.empty_cache()
 
     # 4b. the main path on Amazon at its published size ----------------------

@@ -15,7 +15,9 @@ per graph pass, before its chunks.  The chunk schedules are derived on
 the host from the degree arrays the graph already holds, so no control
 value is ever read back from the card: fixed-size chunks under the
 static schedule, equal-cost chunks (:mod:`repro_torch.core.balance`)
-under the dynamic one.
+under the dynamic one, and one task per degree bucket on the
+bucket-wide schedule (:func:`bucket_wide`: a census on tiles with no
+other per-dyad kernel, static, one pool slot, no ``chunk_dyads``).
 
 A *pass* adds one graph's bins into an accumulator row: the full passes
 (:func:`search_pass`, :func:`tiles_pass`) walk every dyad, the subset
@@ -197,6 +199,15 @@ def search_pass(plan, g: CSRGraph, acc: torch.Tensor) -> None:
 # ----------------------------------------------------------------------------
 
 
+def task_lanes(task, chunk, block: int) -> int:
+    """The lanes of ``task``'s launch: the plan's fixed ``chunk``, or on
+    the bucket-wide schedule (``chunk`` None) the task's own length
+    rounded up to a whole ``block``."""
+    if chunk is not None:
+        return chunk
+    return -(-(task.end - task.start) // block) * block
+
+
 def chunk_dyads(su, sv, task, chunk: int):
     """``chunk`` dyads of the stream from ``task.start``; lanes at or past
     ``task.end`` become SENTINEL padding.  Returns ``(u, v, valid)``;
@@ -228,11 +239,11 @@ def chunk_tile_inputs(arrays, su, sv, task, chunk: int):
 
 def make_tiles_chunk_fn(layout):
     """Chunk unit ``(arrays, n, su, sv, task; chunk, block) ->
-    (total_bins,)`` of the tiles backend, over the task's dyads
-    (:func:`chunk_dyads`):
+    (total_bins,)`` of the tiles backend, over the task's
+    :func:`task_lanes` lanes of dyads (:func:`chunk_dyads`):
 
     * the CSR census kernel, its warp or CTA mapping chosen by the bucket
-      width ``task.key``, gives (chunk / block, 16) partials, summed into
+      width ``task.key``, gives (lanes / block, 16) partials, summed into
       the ``triad_census`` slice;
     * every other kernel (``layout.batch_kernel(skip=("triad_census",))``)
       runs on the same dyads, padded lanes remapped to the inert ``(0,
@@ -254,13 +265,14 @@ def make_tiles_chunk_fn(layout):
         part[census_sl] += census
         return part
 
-    def tiles_chunk(arrays, n, su, sv, task, *, chunk: int, block: int):
-        u, v, valid = chunk_dyads(su, sv, task, chunk)
+    def tiles_chunk(arrays, n, su, sv, task, *, chunk, block: int):
+        lanes = task_lanes(task, chunk, block)
+        u, v, valid = chunk_dyads(su, sv, task, lanes)
         part = None
         if rest is not None:
             if valid is None:
                 ru, rv = u, v
-                rvalid = torch.ones(chunk, dtype=torch.bool, device=u.device)
+                rvalid = torch.ones(lanes, dtype=torch.bool, device=u.device)
             else:
                 ru, rv, rvalid = (torch.where(valid, u, 0),
                                   torch.where(valid, v, 1), valid)
@@ -279,27 +291,46 @@ def make_tiles_chunk_fn(layout):
     return tiles_chunk
 
 
-def tiles_geometry(plan) -> "tuple[int, int, tuple]":
+def bucket_wide(plan) -> bool:
+    """Whether the plan's tiles passes take the bucket-wide schedule, one
+    ``census_csr`` launch per non-empty degree bucket: the plan runs the
+    census and no other per-dyad kernel, on the static schedule over a
+    one-slot pool, and no ``chunk_dyads`` was given.  Every other plan
+    keeps its fixed-size or equal-need chunks: the dynamic schedule
+    balances chunks over a pool, and another per-dyad kernel builds
+    tensors of the chunk's size."""
+    cfg = plan.config
+    return (needs_flags(plan) and cfg.chunk_dyads is None
+            and cfg.schedule == "static" and plan.executor.n_devices == 1
+            and not plan.layout.has_batch(skip=(CENSUS,)))
+
+
+def tiles_geometry(plan) -> "tuple[int, int | None, tuple]":
     """``(block, chunk, ks)`` of the plan's tiles passes: the chunk is a
-    whole number of blocks, and the bucket widths are the configured
+    whole number of blocks, or None on the bucket-wide schedule
+    (:func:`bucket_wide`), and the bucket widths are the configured
     buckets capped at the plan's width ``k``, which is always the top
     bucket."""
     block = plan.config.resolve_block()
-    chunk = max(block, (plan.chunk // block) * block)
+    chunk = (None if bucket_wide(plan)
+             else max(block, (plan.chunk // block) * block))
     kmax = max(plan.meta.k, 1)
     ks = tuple(sorted({min(max(int(k), 1), kmax)
                        for k in plan.config.buckets} | {kmax}))
     return block, chunk, ks
 
 
-def _bucket_tasks(ks: tuple, counts, chunk: int,
-                  need_sorted=None) -> "list[ChunkTask]":
+def _bucket_tasks(ks: tuple, counts, chunk, need_sorted=None, *,
+                  block: int = 1) -> "list[ChunkTask]":
     """Per-bucket chunks over a bucket-sorted dyad stream whose buckets
     hold ``counts`` dyads; each task's key is its bucket's width ``K``,
     which bounds every row of its dyads.  Fixed-size chunks, or, given the
     stream's per-dyad needs in stream order (the dynamic schedule),
     equal-need chunks against one stream-wide quota, so the wide buckets
-    get proportionally shorter chunks."""
+    get proportionally shorter chunks.  With ``chunk`` None, one task per
+    non-empty bucket (:func:`_bucket_spans`)."""
+    if chunk is None:
+        return _bucket_spans(ks, counts, block)
     if need_sorted is not None:
         cum = np.concatenate([[0.0], np.cumsum(need_sorted,
                                                dtype=np.float64)])
@@ -320,17 +351,38 @@ def _bucket_tasks(ks: tuple, counts, chunk: int,
     return tasks
 
 
+def _bucket_spans(ks: tuple, counts, block: int) -> "list[ChunkTask]":
+    """The bucket-wide schedule: one task per non-empty bucket of a
+    bucket-sorted stream whose buckets hold ``counts`` dyads.  Each edge
+    between two tasks is floored to a whole ``block``, so every task but
+    the last is a whole number of blocks, a view of the stream, and only
+    the last pads (fewer than ``block`` lanes).  The dyads a floored edge
+    moves into the next task come from a narrower bucket, so that task's
+    width ``K`` still bounds their rows; a bucket of fewer than ``block``
+    dyads can go wholly to the next task."""
+    live = [(K, int(c)) for K, c in zip(ks, counts) if c]
+    tasks: list = []
+    start = offset = 0
+    for i, (K, c) in enumerate(live):
+        offset += c
+        end = offset if i == len(live) - 1 else offset // block * block
+        if end > start:
+            tasks.append(ChunkTask(start, end, float(K * (end - start)), K))
+            start = end
+    return tasks
+
+
 class TilesStream(NamedTuple):
     """Everything a tiles pass dispatches over: the padded device arrays
     (with the arc flags and range counts when the plan runs the census),
     the dyad stream (bucket-sorted for the census), the task list, and
-    the chunk and block sizes."""
+    the chunk (None on the bucket-wide schedule) and block sizes."""
 
     arrays: GraphArrays
     su: torch.Tensor
     sv: torch.Tensor
     tasks: list
-    chunk: int
+    chunk: "int | None"
     block: int
 
 
@@ -359,7 +411,7 @@ def _tiles_stream(plan, g: CSRGraph) -> TilesStream:
 
     def build():
         counts, need = host_bucket_schedule(g, ks, with_needs=dynamic)
-        return _bucket_tasks(ks, counts, chunk, need)
+        return _bucket_tasks(ks, counts, chunk, need, block=block)
 
     tasks = _memo_tasks(plan, g, ("tiles", ks, chunk), build)
     return TilesStream(arrays, su, sv, tasks, chunk, block)
@@ -388,7 +440,7 @@ def subset_schedule(plan, g: CSRGraph, u: np.ndarray, v: np.ndarray):
     count."""
     if plan.backend == "search":
         return u, v, _search_tasks(plan, g, u, v, plan.chunk)
-    _, chunk, ks = tiles_geometry(plan)
+    block, chunk, ks = tiles_geometry(plan)
     if CENSUS not in plan.layout.slices:
         return u, v, [t._replace(key=ks[-1])
                       for t in _span_tasks(plan, g, len(u), chunk, (u, v))]
@@ -396,15 +448,20 @@ def subset_schedule(plan, g: CSRGraph, u: np.ndarray, v: np.ndarray):
     order = np.lexsort((need, b))
     return u[order], v[order], _bucket_tasks(
         ks, np.bincount(b, minlength=len(ks))[: len(ks)], chunk,
-        need[order] if plan.config.schedule == "dynamic" else None)
+        need[order] if plan.config.schedule == "dynamic" else None,
+        block=block)
 
 
 def make_step(plan, n: int):
     """The executor's ``step(ctx, task)`` of the plan's backend over a
-    ``(arrays, su, sv)`` context of a graph of ``n`` vertices."""
+    ``(arrays, su, sv)`` context of a graph of ``n`` vertices.  Every pass
+    builds its own, once; a pass on the bucket-wide schedule is counted
+    in ``plan.stats["bucket_passes"]``."""
     if plan.backend == "search":
         return lambda ctx, t: plan._fn(ctx[0], n, ctx[1], ctx[2], t)
     block, chunk, _ = tiles_geometry(plan)
+    if chunk is None:
+        plan.stats["bucket_passes"] += 1
     return lambda ctx, t: plan._fn(ctx[0], n, ctx[1], ctx[2], t,
                                    chunk=chunk, block=block)
 

@@ -52,9 +52,12 @@ class EngineConfig:
             smallest bucket >= a dyad's degree need wins; the plan's ``k``
             is always the top bucket).  Non-empty, positive, strictly
             increasing.
-        chunk_dyads: streaming chunk size in dyads (``None`` = 8192),
-            rounded up to whole batches and capped at the graph's
-            dyad-count bucket.
+        chunk_dyads: streaming chunk size in dyads, rounded up to whole
+            batches and capped at the graph's dyad-count bucket.
+            ``None`` means 8192, except on the static one-slot census
+            pass of a plan whose only per-dyad kernel is the census on
+            tiles: there it means one ``census_csr`` launch per non-empty
+            degree bucket (``backends.bucket_wide``).
         pipeline_depth: max chunks in flight on the card before the host
             waits (``1`` = lockstep, ``2`` = double buffering).
         delta_threshold: incremental-census cutoff, in ``(0, 1]``.
@@ -90,8 +93,10 @@ class EngineConfig:
             ``"greedy_sequential"``, ``"sorted_snake"``,
             ``"greedy_lpt"``).
         max_attempts: dispatch budget per chunk (>= 1; 1 disables
-            retry).  A chunk's contribution is folded only when its
-            attempt succeeds, so recovered runs are bit-identical.
+            retry); on the bucket-wide schedule a chunk is a whole degree
+            bucket, so a retry re-runs the bucket.  A chunk's
+            contribution is folded only when its attempt succeeds, so
+            recovered runs are bit-identical.
         backend_fallback: enable the ``tiles -> search`` rung of the
             degradation ladder: an injected tiles compile failure, or a
             run whose chunks exhaust their retries on injected faults

@@ -136,15 +136,17 @@ class Plan:
         self.mesh = mesh
         self.layout = OpLayout(self.ops, meta, config)
         # streaming chunk, capped by the dyad-count bucket so small graphs
-        # do not pad up to a full default chunk
+        # do not pad up to a full default chunk (a pass on the bucket-wide
+        # schedule launches per bucket instead: backends.bucket_wide)
         batch = config.batch
         d_bucket = max(1, meta.m_nbr_bucket // 2)
         self.chunk = min(config.resolve_chunk(), -(-d_bucket // batch) * batch)
         # device dyad list length: whole chunks covering the dyad bucket
         self.dyad_pad = max(self.chunk,
                             -(-d_bucket // self.chunk) * self.chunk)
-        self.stats = {"runs": 0, "chunks": 0, "host_syncs": 0,
-                      "batch_runs": 0, "batch_graphs": 0, "device_chunks": {},
+        self.stats = {"runs": 0, "chunks": 0, "bucket_passes": 0,
+                      "host_syncs": 0, "batch_runs": 0, "batch_graphs": 0,
+                      "device_chunks": {},
                       "delta_runs": 0, "delta_fulls": 0, "reorders": 0,
                       "faults": dict(chunk_failures=0, retries=0,
                                      device_losses=0, quarantines=0,
@@ -535,7 +537,9 @@ def plan_cache_stats() -> dict:
     normally empty), ``device``, ``ops``, ``chunk``, the executor policy
     (``schedule``, ``n_devices``), ``reorder``, live ``task_memo`` and
     ``reorder_memo`` entries, and the execution counters (``runs``,
-    ``chunks``, ``host_syncs``, ``batch_runs`` / ``batch_graphs``,
+    ``chunks``, ``bucket_passes``: the passes that took the bucket-wide
+    schedule, one task per degree bucket (``backends.bucket_wide``),
+    ``host_syncs``, ``batch_runs`` / ``batch_graphs``,
     ``delta_runs`` / ``delta_fulls``, ``reorders``, ``device_chunks``:
     chunks per pool slot, ``faults`` / ``fault_events``: the recovery
     counters and bounded trace), the partition policy (``partitions``, 1

@@ -448,3 +448,25 @@ def test_cuda_main_path_equals_search(cuda_device):
             assert census_csr.launches - before[0] == plan.stats["chunks"]
             assert census_tiles.launches == before[1]
     np.testing.assert_array_equal(raws["tiles"], raws["search"])
+
+
+@pytest.mark.cuda
+def test_cuda_main_path_launches_once_per_bucket(cuda_device):
+    """Past 8,192 dyads the default census plan launches ``census_csr``
+    once per non-empty degree bucket (the top one through the CTA
+    mapping), one launch per task, cold and warm; bins equal search's."""
+    g = tgen.rmat(12, edge_factor=8, seed=0, device=cuda_device)
+    assert g.n_dyads > 8192 and g.max_deg > 512
+    plan = compile(g, ("triad_census",),
+                   EngineConfig(backend="tiles", device=cuda_device))
+    _, chunk, ks = backends.tiles_geometry(plan)
+    assert chunk is None
+    for runs in (1, 2):
+        before, chunks = census_csr.launches, plan.stats["chunks"]
+        raw = plan.run_raw(g)
+        launches = census_csr.launches - before
+        assert launches == plan.stats["chunks"] - chunks <= len(ks)
+        assert plan.stats["bucket_passes"] == runs
+    search = compile(g, ("triad_census",),
+                     EngineConfig(backend="search", device=cuda_device))
+    np.testing.assert_array_equal(raw, search.run_raw(g))

@@ -4,7 +4,10 @@ search ↔ ``_dyad_tasks``); every backend, schedule and pool width gives
 the JAX engine's raw bins and the brute-force census for all four ops, in
 one device→host copy, with ``sum(device_chunks) == chunks``; the config,
 the plan-cache entries and the service report the pool as the JAX
-package does; and a many-worker stress run loses no fold.  Graphs are
+package does; a many-worker stress run loses no fold; and the default
+census plan launches once per degree bucket (the bucket-wide schedule),
+equal to search and to 8,192-dyad chunks, while every other plan keeps
+its task list.  Graphs are
 small R-MATs built in both packages from the same arc arrays; tolerance
 0.  A CPU pool is ``n_executor_devices`` worker threads on the CPU.
 
@@ -26,9 +29,10 @@ from repro_torch.core.census import canonical_dyads, host_bucket_schedule
 from repro_torch.core.graph import arcs_host
 from repro_torch.engine import (ChunkTask, EngineConfig, Executor, FaultPlan,
                                 clear_plan_cache, compile, plan_cache_stats)
-from repro_torch.engine.backends import (_bucket_tasks, _search_tasks,
-                                         tiles_geometry)
-from repro_torch.kernels.triad_census import census_csr
+from repro_torch.engine import backends
+from repro_torch.engine.backends import (_bucket_spans, _bucket_tasks,
+                                         _search_tasks, tiles_geometry)
+from repro_torch.kernels.triad_census import SENTINEL, census_csr
 from repro_torch.serve import CensusService, ServiceConfig
 
 ALL_OPS = ("triad_census", "dyad_census", "degree_stats", "triadic_profile")
@@ -291,6 +295,213 @@ def test_workqueue_stress_loses_no_fold():
     assert not th.is_alive()
     assert acc.tolist() == [2000, sum(range(2000)), 4000]
     assert stats["chunks"] == sum(stats["device_chunks"].values()) == 2000
+
+
+# -- the bucket-wide schedule ---------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def wide_graph():
+    """An R-MAT whose largest degree bucket holds more than 8,192 dyads
+    (15,251 of 26,654 in the 512 bucket)."""
+    return tgen.rmat(12, edge_factor=8, seed=0, device="cpu")
+
+
+@functools.lru_cache(maxsize=None)
+def wide_search_raw():
+    g = wide_graph()
+    return compile(g, ("triad_census",), EngineConfig(
+        backend="search", device="cpu")).run_raw(g)
+
+
+def census_calls(monkeypatch):
+    """Record ``(lanes, live dyads, k)`` of every ``census_csr`` call of
+    the tiles chunk unit."""
+    calls = []
+
+    def recorded(u, v, n, arrays, *, k, block):
+        calls.append((u.shape[0], int((u != SENTINEL).sum()), k))
+        return census_csr(u, v, n, arrays, k=k, block=block)
+
+    monkeypatch.setattr(backends, "census_csr", recorded)
+    return calls
+
+
+def fixed_chunks(ks, counts, chunk):
+    """The static schedule's fixed-size chunks, ``(start, end, K)``: each
+    runs ``chunk`` lanes from its start, and its end is its bucket's."""
+    out, off = [], 0
+    for K, c in zip(ks, counts):
+        out += [(s, off + c, K) for s in range(off, off + c, chunk)]
+        off += int(c)
+    return out
+
+
+@pytest.mark.parametrize("counts", [
+    (2970, 7536, 15251, 897), (0, 100, 0, 5), (40, 3, 3, 70), (64, 0, 0, 0),
+    (5, 0, 0, 0), (0, 0, 0, 33)])
+def test_bucket_spans_cover_the_stream_one_task_a_bucket(counts):
+    """One task per bucket of at least a block, contiguous over the
+    stream, every edge but the last on a whole block, and each task's
+    width at least the bucket of every dyad it holds."""
+    ks, block = (32, 128, 512, 1024), 32
+    tasks = _bucket_spans(ks, counts, block)
+    assert tasks == _bucket_tasks(ks, counts, None, block=block)
+    assert tasks[0].start == 0 and tasks[-1].end == sum(counts)
+    assert all(a.end == b.start for a, b in zip(tasks, tasks[1:]))
+    assert all(t.end % block == 0 for t in tasks[:-1])
+    assert len(tasks) <= sum(1 for c in counts if c)
+    if all(c >= block for c in counts if c):
+        assert [t.key for t in tasks] == [K for K, c in zip(ks, counts) if c]
+    edges = np.cumsum(counts)
+    for t in tasks:  # the bucket of the task's last dyad bounds all of it
+        assert ks[int(np.searchsorted(edges, t.end - 1, side="right"))] \
+            <= t.key
+        assert t.cost == float(t.key * (t.end - t.start))
+
+
+def test_default_census_plan_launches_once_per_bucket(monkeypatch):
+    """The default tiles census: one task and one launch per non-empty
+    bucket, each launch at most its dyads plus block - 1 sentinel lanes,
+    counted in ``bucket_passes``; bins equal the search backend's and an
+    explicit 8,192-dyad plan's; a batch equals single runs."""
+    g = wide_graph()
+    plan = compile(g, ("triad_census",), EngineConfig(backend="tiles",
+                                                      device="cpu"))
+    block, chunk, ks = tiles_geometry(plan)
+    assert chunk is None and backends.bucket_wide(plan)
+    counts, _ = host_bucket_schedule(g, ks, with_needs=False)
+    assert max(counts) > 8192
+    tasks = backends.tiles_stream(plan, g).tasks
+    assert [t.key for t in tasks] == [K for K, c in zip(ks, counts) if c]
+    assert (tasks[0].start, tasks[-1].end) == (0, g.n_dyads)
+    calls = census_calls(monkeypatch)
+    raw = plan.run_raw(g)
+    assert [k for _, _, k in calls] == [t.key for t in tasks]
+    assert all(lanes % block == 0 and lanes - live < block
+               and live == t.end - t.start
+               for (lanes, live, _), t in zip(calls, tasks))
+    assert plan.stats["chunks"] == len(tasks)
+    assert plan.stats["bucket_passes"] == 1
+    np.testing.assert_array_equal(raw, wide_search_raw())
+    chunked = compile(g, ("triad_census",), EngineConfig(
+        backend="tiles", device="cpu", chunk_dyads=8192))
+    np.testing.assert_array_equal(chunked.run_raw(g), raw)
+    g2 = tgen.rmat(12, edge_factor=8, seed=1, device="cpu")
+    batch = plan.run_batch([g, g2])
+    assert plan.stats["bucket_passes"] == 3
+    for res, one, gi in zip(batch, (raw, plan.run_raw(g2)), (g, g2)):
+        np.testing.assert_array_equal(
+            res["triad_census"].counts,
+            plan.layout.finalize(one, gi)["triad_census"].counts)
+    entry, = (e for e in plan_cache_stats()["entries"]
+              if e["bucket_passes"])
+    assert entry["bucket_passes"] == 4 and "chunks" in entry
+
+
+@pytest.mark.parametrize("case", ["chunk_dyads", "dynamic", "dynamic_pool",
+                                  "two_slots", "dyad_census", "search"])
+def test_chunked_schedules_keep_their_task_lists(case):
+    """Every plan outside the bucket-wide schedule keeps the task list it
+    had: fixed 8,192-dyad chunks per bucket (search: over the stream),
+    equal-need chunks under the dynamic schedule."""
+    g = wide_graph()
+    kw = dict(chunk_dyads=dict(chunk_dyads=8192), dynamic=dict(
+        schedule="dynamic"), dynamic_pool=dict(
+        schedule="dynamic", n_executor_devices=2)).get(case, {})
+    ops = (("triad_census", "dyad_census") if case == "dyad_census"
+           else ("triad_census",))
+    plan = compile(g, ops, EngineConfig(
+        backend="search" if case == "search" else "tiles", device="cpu",
+        **kw))
+    if case == "two_slots":  # a static plan handed a wider pool
+        plan.executor.devices = [torch.device("cpu")] * 2
+    assert not backends.bucket_wide(plan) and plan.chunk == 8192
+    if case == "search":
+        u, v = canonical_dyads(g)
+        got = _search_tasks(plan, g, u, v, plan.chunk)
+        assert [(t.start, t.end) for t in got] == [
+            (s, min(s + 8192, g.n_dyads)) for s in range(0, g.n_dyads, 8192)]
+    else:
+        block, chunk, ks = tiles_geometry(plan)
+        assert chunk == 8192
+        got = backends.tiles_stream(plan, g).tasks
+        counts, need = host_bucket_schedule(g, ks, with_needs=True)
+        if case.startswith("dynamic"):
+            assert got == _bucket_tasks(ks, counts, chunk, need)
+        else:
+            assert [(t.start, t.end, t.key) for t in got] == fixed_chunks(
+                ks, counts, chunk)
+    raw = plan.run_raw(g)
+    assert plan.stats["bucket_passes"] == 0
+    assert plan.stats["chunks"] == len(got) >= 4
+    np.testing.assert_array_equal(
+        raw[plan.layout.slices["triad_census"]], wide_search_raw())
+
+
+@pytest.mark.parametrize("fault", ["injected", "kernel"])
+def test_bucket_task_retry_folds_once(monkeypatch, fault):
+    """A failed bucket-wide task folds nothing and its retry folds the
+    whole bucket once: bins bit-identical to the clean run."""
+    g = wide_graph()
+    fp = FaultPlan(chunk_failure_rate=1.0) if fault == "injected" else None
+    plan = compile(g, ("triad_census",), EngineConfig(
+        backend="tiles", device="cpu", fault_plan=fp or FaultPlan()))
+    assert backends.bucket_wide(plan)
+    if fault == "kernel":  # the third bucket's first launch fails late
+        failed = []
+
+        def flaky(u, v, n, arrays, *, k, block):
+            out = census_csr(u, v, n, arrays, k=k, block=block)
+            if k == 512 and not failed:
+                failed.append(k)
+                raise RuntimeError("census_csr launch failed: injected")
+            return out
+
+        monkeypatch.setattr(backends, "census_csr", flaky)
+    raw = plan.run_raw(g)
+    np.testing.assert_array_equal(raw, wide_search_raw())
+    tasks = backends.tiles_stream(plan, g).tasks
+    faults = plan.stats["faults"]
+    assert faults["retries"] == (len(tasks) if fp else 1)
+    assert faults["chunk_failures"] == (len(tasks) if fp else 0)
+    assert plan.stats["chunks"] == len(tasks)
+    assert plan.stats["bucket_passes"] == 1
+
+
+@pytest.mark.parametrize("path", ["delta", "partitions", "distributed"])
+def test_subset_passes_take_the_bucket_schedule(monkeypatch, path):
+    """Subset passes (a delta's affected dyads, partition shards, a
+    rank's row) go bucket-wide under the same test and keep their bins."""
+    from repro_torch.core.delta import GraphDelta, apply_delta_csr
+
+    g = wide_graph()
+    kw = dict(partitions=dict(partitions=2),
+              distributed=dict(backend="distributed")).get(path, {})
+    plan = compile(g, ("triad_census",), EngineConfig(**{
+        "backend": "tiles", "device": "cpu", "delta_threshold": 1.0, **kw}))
+    assert backends.bucket_wide(plan)
+    if path == "delta":
+        d = GraphDelta(edges_added=[(0, 5), (7, 3), (4000, 9)],
+                       edges_removed=[tuple(int(x) for x in
+                                            np.stack(arcs_host(g))[:, 0])])
+        g_new = apply_delta_csr(g, d)
+        want = compile(g_new, ("triad_census",), EngineConfig(
+            backend="tiles", device="cpu", chunk_dyads=8192)).run_raw(g_new)
+        calls = census_calls(monkeypatch)
+        out = plan.apply_delta(g, d, wide_search_raw())
+        assert out.mode == "delta"
+        raw, passes = out.raw, 2  # the affected dyads of both graphs
+    else:
+        calls = census_calls(monkeypatch)
+        raw, want = plan.run_raw(g), wide_search_raw()
+        passes = 1
+    np.testing.assert_array_equal(raw, want)
+    _, _, ks = tiles_geometry(plan)
+    assert plan.stats["bucket_passes"] == passes
+    assert plan.stats["chunks"] == len(calls)
+    assert len(calls) <= len(ks) * passes * plan.partitions
+    assert all(lanes - live < plan.config.resolve_block()
+               for lanes, live, _ in calls)
 
 
 @pytest.mark.cuda
